@@ -1,0 +1,51 @@
+"""Public facade: ``StencilProblem -> plan() -> ExecutionPlan -> compile()``,
+on one NVIDIA H100.
+
+    from repro_torch import api
+
+    problem = api.StencilProblem(api.star(2, 2), grid=(8192, 8192),
+                                 boundary="periodic", steps=16)
+    p = api.plan(problem, backends=["cuda"])   # frozen, JSON-serializable
+    print(p.explain())                         # modelled roofline costs
+    run = api.compile(p)                       # on the card by default
+    y = run(x)                                 # x: a CUDA tensor
+
+``api.compile(p, device="cpu")`` runs the same plan on the CPU, where the
+``cuda`` backend's kernel wrappers use their plain PyTorch versions.  A
+problem or plan of the JAX package carries across with identical numbers:
+``StencilProblem.from_dict(ref_problem.to_dict())`` and
+``ExecutionPlan.from_json(ref_plan.to_json())`` (backend names mapped by
+``REFERENCE_BACKENDS``).
+"""
+from __future__ import annotations
+
+from repro_torch.core.engine import (Backend, StencilEngine, backend_names,
+                                     choose_cover, default_block, get_backend,
+                                     legal_covers, register_backend)
+from repro_torch.core.planner import (REFERENCE_BACKENDS, CandidateCost,
+                                      CompiledStencil, ExecutionPlan,
+                                      FUSE_STRATEGIES, PLAN_VERSION,
+                                      StencilProblem, batch_cost_curve,
+                                      best_block, candidate_blocks,
+                                      candidate_cost, compile_plan,
+                                      max_profitable_batch, plan,
+                                      serving_buckets)
+from repro_torch.core.stencil_spec import (PAPER_SUITE, StencilSpec, box,
+                                           diagonal, from_gather_coeffs,
+                                           from_numpy, random_coeff_field,
+                                           random_domain_mask, star)
+
+compile = compile_plan  # noqa: A001 - the facade verb (shadows the builtin
+#                         inside this namespace only, by design)
+
+__all__ = [
+    "StencilProblem", "ExecutionPlan", "CandidateCost", "CompiledStencil",
+    "plan", "compile", "compile_plan", "candidate_cost", "candidate_blocks",
+    "best_block", "batch_cost_curve", "max_profitable_batch",
+    "serving_buckets", "FUSE_STRATEGIES", "PLAN_VERSION",
+    "REFERENCE_BACKENDS",
+    "StencilEngine", "Backend", "register_backend", "get_backend",
+    "backend_names", "choose_cover", "legal_covers", "default_block",
+    "StencilSpec", "box", "star", "diagonal", "from_gather_coeffs",
+    "from_numpy", "random_coeff_field", "random_domain_mask", "PAPER_SUITE",
+]
