@@ -9,8 +9,9 @@ Phases:
 
 1. identify the card (``nvidia-smi`` name and power limit, torch and CUDA
    versions) and turn TF32 off for matmuls and cuDNN;
-2. build both CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
-   for ``sm_90a`` (timed; the compiler's register report is printed);
+2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+   nvcc for ``sm_90a``, one process per source (timed; the compiler's
+   register report is printed);
 3. hold each kernel against its plain PyTorch version on the card, at
    1000^2 and 90^3 (not tile multiples), f32 and bf16, constant and
    varying+masked, unbatched and batch 3, both sweep scratch modes;
@@ -27,14 +28,35 @@ Phases:
    version and one PyTorch library call (``F.conv2d`` with TF32 off), and
    the sweep at the path's tile against a 128x128 tile, in turns;
 7. time each cell's warm run on the host clock and break one profiled
-   run's device time into the two kernels and everything else.
+   run's device time into the two kernels and everything else;
+8. hold the LM kernels against their plain versions: the banded mixer
+   (shared and depthwise band, W in {1, 2, 4}, T = 1539, D = 3237, batch 1
+   and 4, f32 and bf16) and flash attention (causal and full, f32 and
+   bf16, S in {128, 1536}, Dh in {16, 64}), and ``flash_attention``'s
+   gradients against autograd through the plain version;
+9. build Hymba-1.5B at full width and depth on the card from a seeded
+   generator and serve batch 4 x 1536-token prompts for 32 greedy tokens
+   through ``launch.serve.serve`` (cold, then warm): finite logits, ring
+   and full caches, and the banded mixer launched 32 + 32 x 32 times
+   (counter zeroed just before, read just after); then drive
+   ``flash_attention`` (forward and backward) at Hymba's attention widths;
+10. the full-width f32 serving consistency check (one 1040-token prefill
+   against 1000 prefilled + 40 decoded tokens, the ring wrapping), and
+   every banded-mixer configuration phase 9 launched against its plain
+   version;
 
-Any kernel-vs-plain error over its tolerance (phases 3, 5 and 6) or any
-main-path cell off its oracle fails the run.
+then phase 6's timing for the two LM kernels (banded mixer at the
+prefill's and a decode step's shape, flash attention at (4, 25, 1536, 64)
+causal f32; library yardsticks ``F.conv1d`` and SDPA) and phase 7's
+breakdown of one warm prefill and decode step of the serve cell.
 
-The line before the last is a JSON object ``{"kernels": [...]}`` and the
-one before it the card's ``name, power.limit``; the last line is
-``{"ok": true, "device": {...}}``.  Without a card, or without the
+Any kernel-vs-plain error over its tolerance (phases 3, 5, 6, 8 and 10),
+any main-path cell off its oracle, or any serve check that fails (phases
+9 and 10) fails the run.
+
+The last three lines are a JSON object ``{"kernels": [...]}`` (all four
+kernels), the card's ``name, power.limit`` and ``{"ok": true, "device":
+{...}}``.  Without a card, or without the
 repository's sources beside this file, it exits non-zero and prints no
 result.
 """
@@ -56,6 +78,18 @@ F32_FLOPS_PER_S = 67e12
 
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 E2E_ATOL = 1e-4
+# flash attention against its plain version: the reference test's bars
+# (tests/test_flash_kernel.py), and its gradients against autograd
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# bf16 flash attention is also held to this share of max|plain| (about
+# five bf16 ulps at the largest output): at S=1536 without the causal mask
+# an output averages ~565 effective keys, and its RMS (~0.04) is close to
+# the fixed 3e-2 bar
+FLASH_BF16_REL_TOL = 2e-2
+FLASH_GRAD_TOL = 1e-4
+# serving consistency at full width, f32: max|diff| of the last logits
+# over max|logits|
+CONSISTENCY_REL_TOL = 1e-3
 
 # phase 3: (suite name, cover, tile, output extent, sweep steps) per rank
 KERNEL_CASES = {2: ("star2d_r2", "orthogonal", (32, 128), (1000, 1000), 3),
@@ -72,6 +106,13 @@ CELLS = (
     dict(label="star2d_r1 4096^2 varying+masked inkernel", name="star2d_r1",
          grid=(4096, 4096), steps=8, strategy="inkernel", scenario=True),
 )
+
+
+# phases 8-10: the LM slice at Hymba-1.5B's widths
+BANDED_RAGGED = (1539, 3200 + 37)       # (T, D): prefill rows, ragged D
+FLASH_SHAPE = (4, 25, 1536, 64)         # (B, H, S, Dh)
+SERVE = dict(batch=4, prompt_len=1536, gen_len=32)
+CONSISTENCY = dict(batch=2, prompt_len=1040, split=1000, seed=2)
 
 
 def log(msg: str) -> None:
@@ -159,9 +200,12 @@ def kernel_cases(device, cases=KERNEL_CASES):
                                KERNEL_TOL[dtype])
 
 
-def check_kernels(device, failures: list, cases=KERNEL_CASES) -> None:
+def check_cases(device, failures: list, cases) -> None:
+    """Hold each ``(label, kernel output, plain output, tolerance)`` of
+    ``cases``; a case over its tolerance (or of another shape or type) is
+    a failure."""
     import torch
-    for label, got, want, tol in kernel_cases(device, cases):
+    for label, got, want, tol in cases:
         if device.type == "cuda":
             torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
@@ -365,7 +409,7 @@ def time_kernels(device, main: dict, failures: list) -> list[dict]:
             name, source, replaces, main["launches"][name], failures,
             kernel=case["kernel"], plain=case["plain"],
             library=lambda x=x, wt=weight: F.conv2d(x[None, None], wt)[0, 0],
-            x=x, aux=case["aux"], flops_per_out=2 * spec.taps * steps,
+            inputs=(x, *case["aux"]), flops_per_out=2 * spec.taps * steps,
             desc=case["label"]))
         del case, x
     return rows
@@ -402,7 +446,12 @@ def compare_sweep_tiles(device, main: dict, failures: list) -> None:
 
 
 def _time_row(name, source, replaces, launches, failures, *, kernel, plain,
-              library, x, aux, flops_per_out, desc) -> dict:
+              library, inputs, flops_per_out, desc, tol=None,
+              library_name="F.conv2d") -> dict:
+    """Time ``kernel``, ``plain`` and ``library`` at one shape with CUDA
+    events and return the kernel's row of the ``kernels`` line; the bound
+    counts each tensor of ``inputs`` read once and the output written
+    once."""
     import torch
     got = kernel()
     want = plain()
@@ -410,7 +459,8 @@ def _time_row(name, source, replaces, launches, failures, *, kernel, plain,
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     lib_err = (lib.float() - want.float()).abs().max().item()
-    tol = KERNEL_TOL[str(got.dtype).removeprefix("torch.")]
+    if tol is None:
+        tol = KERNEL_TOL[str(got.dtype).removeprefix("torch.")]
     if not err <= tol:
         failures.append(f"kernel vs plain at the timed shape: {desc}: "
                         f"{err:.3e}")
@@ -419,11 +469,11 @@ def _time_row(name, source, replaces, launches, failures, *, kernel, plain,
     plain_ms = cuda_ms(plain, reps=5, warmup=1)
     library_ms = cuda_ms(library, reps=20)
     bound_ms, bound_by = bound(
-        x.numel() * x.element_size()
-        + sum(a.numel() * a.element_size() for a in aux),
+        sum(a.numel() * a.element_size() for a in inputs),
         n_out * got.element_size(), flops_per_out * n_out)
     log(f"  {desc}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"F.conv2d {library_ms:.3f} ms (max|conv-plain| {lib_err:.2e}), "
+        f"{library_name} {library_ms:.3f} ms (max|library-plain| "
+        f"{lib_err:.2e}), "
         f"bound {bound_ms:.3f} ms by {bound_by}, max|kernel-plain| {err:.2e} "
         f"(tol {tol:g}){'' if err <= tol else '  FAIL'}")
     del got, want, lib
@@ -495,6 +545,410 @@ def cell_breakdown(device, main: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the LM kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def lm_kernel_cases(device):
+    """Yield (label, kernel output, plain output, tolerance): the banded
+    mixer (both band kinds, W in {1, 2, 4}, ragged T and D, batch 1 and
+    4, f32 and bf16) and flash attention (causal and full, f32 and bf16,
+    S in {128, 1536}, Dh in {16, 64}) at Hymba's widths."""
+    import torch
+    from repro_torch.kernels import banded_mixer as bm
+    from repro_torch.kernels import flash_attention as fa
+
+    seed = 5000
+    t_len, d = BANDED_RAGGED
+    for kind in ("shared", "depthwise"):
+        for w in (1, 2, 4):
+            for batch in (1, 4):
+                for dtype in ("float32", "bfloat16"):
+                    seed += 2
+                    x = seeded_normal((batch, t_len, d), seed, device).to(
+                        getattr(torch, dtype))
+                    # the model's band scale (1/W), so |y| stays where one
+                    # bf16 ulp is under the tolerance
+                    band = seeded_normal((w, d) if kind == "depthwise"
+                                         else (w,), seed + 1, device) / w
+                    yield (f"banded_mixer {kind} W={w} x{tuple(x.shape)} "
+                           f"{dtype}", bm.banded_mixer_cuda_call(x, band),
+                           bm.banded_mixer_plain(x, band), KERNEL_TOL[dtype])
+    for causal in (True, False):
+        for dtype in ("float32", "bfloat16"):
+            for s in (128, 1536):
+                for dh in (16, 64):
+                    seed += 3
+                    q, k, v = (seeded_normal(
+                        (4, 25, s, dh), seed + i, device).to(
+                        getattr(torch, dtype)) for i in range(3))
+                    plain = fa.flash_attention_plain(q, k, v, causal)
+                    tol, bar = FLASH_TOL[dtype], ""
+                    if dtype == "bfloat16":
+                        peak = plain.float().abs().max().item()
+                        tol = min(tol, FLASH_BF16_REL_TOL * peak)
+                        bar = (f" [tol = min({FLASH_TOL[dtype]:g}, "
+                               f"{FLASH_BF16_REL_TOL:g} x max|plain| "
+                               f"{peak:.3g})]")
+                    yield (f"flash_attention causal={causal} {dtype} "
+                           f"q{tuple(q.shape)}{bar}",
+                           fa.flash_attention_cuda(q, k, v, causal=causal),
+                           plain, tol)
+
+
+def check_flash_grad(device, failures: list) -> None:
+    """Gradients of ``flash_attention`` (kernel forward, dense backward)
+    against autograd through the plain version."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    qkv = [seeded_normal((1, 2, 256, 64), 6000 + i, device) for i in range(3)]
+    grads = []
+    for fn in (fa.flash_attention,
+               lambda q, k, v: fa.flash_attention_plain(q, k, v, True)):
+        leaves = [t.clone().requires_grad_(True) for t in qkv]
+        loss = torch.sin(fn(*leaves)).sum()
+        grads.append(torch.autograd.grad(loss, leaves))
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(*grads))
+    ok = err <= FLASH_GRAD_TOL
+    log(f"  flash_attention grads (1, 2, 256, 64) f32 vs autograd through "
+        f"the plain version: max|diff| {err:.3e} (tol {FLASH_GRAD_TOL:g})"
+        f"{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append(f"flash_attention grads: {err:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: Hymba-1.5B serves a few requests; flash attention's entry point
+# ---------------------------------------------------------------------------
+
+def _recording_banded_configs(seen: set):
+    """Record every (x shape, band shape, dtype, tile) that ``ops.banded_mix``
+    hands the banded mixer's wrapper, until the returned function is
+    called.  The wrapper itself stays in place (its launch counter is its
+    own); ``ops`` calls it through a recording stand-in of its module."""
+    import types
+    from repro_torch.kernels import banded_mixer as bm
+    from repro_torch.kernels import ops
+
+    def record(x, band, block_t=128, block_d=128):
+        seen.add((tuple(x.shape), tuple(band.shape), x.dtype, block_t,
+                  block_d))
+        return bm.banded_mixer_cuda_call(x, band, block_t, block_d)
+
+    ops.banded_mixer = types.SimpleNamespace(MAX_BATCH=bm.MAX_BATCH,
+                                             banded_mixer_cuda_call=record)
+
+    def restore():
+        ops.banded_mixer = bm
+    return restore
+
+
+def serve_hymba(device, failures: list) -> dict:
+    """Build Hymba-1.5B at full width and depth from a seeded generator
+    (bf16 compute), serve batch 4 x 1536-token prompts for 32 greedy
+    tokens through ``launch.serve.serve`` (make_prefill /
+    make_decode_step) once cold and once warm; the banded mixer's counter
+    is zeroed just before the cold run and read just after."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import banded_mixer as bm
+    from repro_torch.launch.input_specs import (sample_from_specs,
+                                                train_batch_specs)
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import kv_cache as kvc
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config("hymba_1_5b")
+    t0 = time.perf_counter()
+    model = tf.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.name}: {n_params} parameters built on the card in "
+        f"{time.perf_counter() - t0:.2f} s (param_count() "
+        f"{cfg.param_count()}), compute {cfg.compute_dtype}, "
+        f"{cfg.num_layers} layers, window {cfg.sliding_window}")
+    tokens = sample_from_specs(
+        train_batch_specs(cfg, SERVE["batch"], SERVE["prompt_len"]), cfg,
+        seed=1)["tokens"].to(device)
+    gen_len = SERVE["gen_len"]
+
+    configs: set = set()
+    restore = _recording_banded_configs(configs)
+    torch.cuda.reset_peak_memory_stats()
+    bm.banded_mixer_cuda_call.launches = 0      # zeroed just before the path
+    try:
+        cold = serve(model, tokens, gen_len)
+    finally:
+        restore()
+    launches = bm.banded_mixer_cuda_call.launches
+    peak = torch.cuda.max_memory_allocated()
+    warm = serve(model, tokens, gen_len)
+
+    expect = cfg.num_layers * (1 + gen_len)
+    finite = all(bool(torch.isfinite(l).all()) for l in cold["logits"])
+    shapes_ok = (cold["ids"].shape == (SERVE["batch"], gen_len)
+                 and cold["logits"][0].shape == (SERVE["batch"],
+                                                 cfg.vocab_size))
+    kinds = sorted({type(c[0]).__name__ for c in cold["state"].caches})
+    same = bool(torch.equal(cold["ids"], warm["ids"]))
+    for run, out in (("cold", cold), ("warm", warm)):
+        log(f"  serve {run}: prefill {SERVE['batch']}x{SERVE['prompt_len']} "
+            f"{out['prefill_ms']:.1f} ms, decode {gen_len} tokens "
+            f"{out['decode_ms']:.1f} ms ({out['decode_ms'] / gen_len:.2f} "
+            f"ms/token) (host clock, synchronised)")
+    for b, ids in enumerate(cold["ids"][:, :8].tolist()):
+        log(f"  request {b}: first 8 generated ids {ids}")
+    ok = finite and shapes_ok and launches == expect and same \
+        and kinds == sorted([kvc.FullKVCache.__name__,
+                             kvc.RingKVCache.__name__])
+    log(f"  finite logits {finite}, shapes ok {shapes_ok}, caches {kinds}, "
+        f"warm ids == cold ids {same}, banded_mixer launches {launches} "
+        f"(expected {cfg.num_layers} + {cfg.num_layers} x {gen_len} = "
+        f"{expect}), peak memory {peak / 2**30:.2f} GiB"
+        f"{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append(f"serve: finite={finite} shapes={shapes_ok} "
+                        f"launches={launches}/{expect} same={same} "
+                        f"caches={kinds}")
+    return {"cfg": cfg, "model": model, "tokens": tokens,
+            "configs": configs, "launches": launches, "warm": warm}
+
+
+def flash_path(device, failures: list) -> int:
+    """Drive flash attention's own entry point, ``flash_attention`` (kernel
+    forward, dense backward), at Hymba's attention widths; its counter is
+    zeroed just before and read just after.  Returns the launches."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (seeded_normal(FLASH_SHAPE, 7000 + i, device).requires_grad_(True)
+               for i in range(3))
+    fa.flash_attention_cuda.launches = 0
+    out = fa.flash_attention(q, k, v, causal=True)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    launches = fa.flash_attention_cuda.launches
+    with torch.no_grad():
+        err = (out - fa.flash_attention_plain(q, k, v, True)).abs().max().item()
+    finite = all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+    ok = err <= FLASH_TOL["float32"] and finite and launches > 0
+    log(f"  flash_attention{FLASH_SHAPE} f32 causal, forward + backward: "
+        f"max|out-plain| {err:.3e} (tol {FLASH_TOL['float32']:g}), finite "
+        f"grads {finite}, launches {launches}{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append(f"flash path: err={err:.3e} finite={finite} "
+                        f"launches={launches}")
+    del q, k, v, out
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the serving path's own correctness at full width
+# ---------------------------------------------------------------------------
+
+def serve_consistency(device, failures: list, lm: dict) -> None:
+    """Full-width f32 counterpart of the reference's
+    ``test_smoke_serve_consistency``: the last logits of one 1040-token
+    prefill (the ring write with s >= window) against a 1000-token prefill
+    followed by 40 decode steps (the ring wraps during decode), both with
+    ``max_len`` 1041; then every banded-mixer configuration phase 9
+    launched against its plain version at its own shape."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import banded_mixer as bm
+    from repro_torch.launch.input_specs import (sample_from_specs,
+                                                train_batch_specs)
+    from repro_torch.models import kv_cache as kvc
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.serve_step import make_decode_step, make_prefill
+
+    c = CONSISTENCY
+    cfg = dataclasses.replace(lm["cfg"], compute_dtype="float32")
+    model = tf.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    tokens = sample_from_specs(
+        train_batch_specs(cfg, c["batch"], c["prompt_len"]), cfg,
+        seed=c["seed"])["tokens"].to(device)
+    max_len = c["prompt_len"] + 1
+    prefill = make_prefill(cfg, max_len)
+    decode = make_decode_step(cfg)
+    with torch.no_grad():
+        full, _ = prefill(model, tokens)
+        last, state = prefill(model, tokens[:, :c["split"]])
+        for t in range(c["split"], c["prompt_len"]):
+            last, state = decode(model, state, tokens[:, t:t + 1])
+    rings = sum(isinstance(cache[0], kvc.RingKVCache)
+                for cache in state.caches)
+    scale = full.abs().max().item()
+    err = (last - full).abs().max().item()
+    tol = CONSISTENCY_REL_TOL * scale
+    ok = err <= tol and bool(torch.isfinite(full).all()) and rings > 0
+    log(f"  f32, batch {c['batch']}: prefill {c['prompt_len']} vs prefill "
+        f"{c['split']} + decode {c['prompt_len'] - c['split']} ({rings} "
+        f"ring caches, window {cfg.sliding_window}, max_len {max_len}): "
+        f"max|diff| of the last logits {err:.3e} (tol {tol:.3e} = "
+        f"{CONSISTENCY_REL_TOL:g} x max|logits| {scale:.3f})"
+        f"{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append(f"serve consistency: {err:.3e} > {tol:.3e} "
+                        f"(rings={rings})")
+    del model, full, last, state
+
+    def path_cases():
+        for i, (shape, band_shape, dtype, bt, bd) in enumerate(
+                sorted(lm["configs"], key=str)):
+            x = seeded_normal(shape, 8000 + i, device).to(dtype)
+            band = seeded_normal(band_shape, 8100 + i, device) / band_shape[0]
+            yield (f"banded_mixer on the serve path: x{shape} band"
+                   f"{band_shape} {str(dtype).removeprefix('torch.')} tile "
+                   f"({bt}, {bd})", bm.banded_mixer_cuda_call(x, band, bt, bd),
+                   bm.banded_mixer_plain(x, band),
+                   KERNEL_TOL[str(dtype).removeprefix("torch.")])
+    check_cases(device, failures, path_cases())
+
+
+# ---------------------------------------------------------------------------
+# phase 6 (LM kernels): times at the serve path's shapes
+# ---------------------------------------------------------------------------
+
+def time_lm_kernels(device, lm: dict, flash_launches: int,
+                    failures: list) -> list[dict]:
+    """The banded mixer at the prefill's shape (and its decode-step time
+    beside it) and flash attention at Hymba's attention widths, with their
+    bounds, plain versions and one library call each: ``F.conv1d`` with
+    ``groups=D`` on the causally padded input, and
+    ``F.scaled_dot_product_attention(is_causal=True)`` in f32 (TF32 off)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import banded_mixer as bm
+    from repro_torch.kernels import flash_attention as fa
+
+    prefill_shape, decode_shape = sorted(
+        {c[0] for c in lm["configs"]}, key=lambda s: -s[1])[:2]
+    rows = []
+    for shape, label in ((prefill_shape, "prefill"), (decode_shape, "decode")):
+        batch, t_len, d = shape
+        w = lm["cfg"].ssm.conv_width
+        x = seeded_normal(shape, 9000, device)
+        band = seeded_normal((w, d), 9001, device) / w
+        # conv1d is a cross-correlation: flip the band; pad W-1 in front
+        weight = band.flip(0).t().contiguous()[:, None, :]
+
+        def library(x=x, weight=weight, w=w, d=d):
+            xc = F.pad(x.transpose(1, 2), (w - 1, 0))
+            return F.conv1d(xc, weight, groups=d).transpose(1, 2)
+        row = _time_row(
+            "banded_mixer", "src/repro_torch/kernels/csrc/banded_mixer.cu",
+            "src/repro/kernels/banded_mixer.py:53", lm["launches"], failures,
+            kernel=lambda x=x, band=band: bm.banded_mixer_cuda_call(x, band),
+            plain=lambda x=x, band=band: bm.banded_mixer_plain(x, band),
+            library=library, inputs=(x, band), flops_per_out=2 * w,
+            desc=f"banded_mixer {label} x{shape} f32 depthwise W={w}",
+            library_name="F.conv1d(groups=D)")
+        if label == "prefill":
+            rows.append(row)
+    q, k, v = (seeded_normal(FLASH_SHAPE, 9100 + i, device)
+               for i in range(3))
+    s = FLASH_SHAPE[2]
+    rows.append(_time_row(
+        "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:57", flash_launches, failures,
+        kernel=lambda: fa.flash_attention_cuda(q, k, v, causal=True),
+        plain=lambda: fa.flash_attention_plain(q, k, v, True),
+        library=lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True),
+        inputs=(q, k, v),
+        # causal: QK^T and PV over the S(S+1)/2 kept pairs, 2 flops each
+        # per Dh element -> 2(S+1) flops per output element
+        flops_per_out=2 * (s + 1), tol=FLASH_TOL["float32"],
+        desc=f"flash_attention q{FLASH_SHAPE} f32 causal",
+        library_name="SDPA(is_causal)"))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7 (serve cell): where a prefill's and a decode step's time goes
+# ---------------------------------------------------------------------------
+
+_MATMUL = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
+
+
+def _device_split(prof) -> dict:
+    """Device time (ms) of a profiled run split into the banded mixer
+    kernel, the ``attention`` and ``ssm_scan`` spans (every device op
+    their code launched), the remaining matmuls, and the rest."""
+    from torch.autograd import DeviceType
+
+    def kernels_under(ev):
+        yield from ev.kernels
+        for ch in ev.cpu_children:
+            yield from kernels_under(ch)
+
+    total = banded = matmul = 0.0
+    spans = {"attention": 0.0, "ssm_scan": 0.0}
+    in_span_matmul = 0.0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation:
+            ms = ev.device_time_total / 1e3
+            total += ms
+            name = ev.name.lower()
+            if "banded_mixer_kernel" in name:
+                banded += ms
+            elif any(m in name for m in _MATMUL):
+                matmul += ms
+        elif ev.device_type == DeviceType.CPU and ev.name in spans:
+            spans[ev.name] += ev.device_time_total / 1e3
+            in_span_matmul += sum(
+                k.duration for k in kernels_under(ev)
+                if any(m in k.name.lower() for m in _MATMUL)) / 1e3
+    matmul -= in_span_matmul
+    other = total - banded - matmul - sum(spans.values())
+    return {"total": total, "banded_mixer": banded, "matmuls": matmul,
+            **spans, "other": other}
+
+
+def serve_breakdown(device, lm: dict) -> None:
+    """Device time of one warm prefill and one warm decode step of the
+    phase 9 model, split by :func:`_device_split`; the device's idle share
+    is against the unprofiled warm times of phase 9 (host clock)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.serve_step import make_decode_step, make_prefill
+
+    cfg, model, tokens = lm["cfg"], lm["model"], lm["tokens"]
+    warm = lm["warm"]
+    prefill = make_prefill(cfg, tokens.shape[1] + SERVE["gen_len"] + 1)
+    decode = make_decode_step(cfg)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.no_grad():
+        with profile(activities=acts) as p_prefill:
+            last, state = prefill(model, tokens)
+            torch.cuda.synchronize()
+        tok = torch.argmax(last, dim=-1)[:, None]
+        decode(model, state, tok)                 # warm the decode path
+        torch.cuda.synchronize()
+        with profile(activities=acts) as p_decode:
+            decode(model, state, torch.argmax(last, dim=-1)[:, None])
+            torch.cuda.synchronize()
+    for stage, prof, wall in (
+            ("prefill", p_prefill, warm["prefill_ms"]),
+            ("decode step", p_decode, warm["decode_ms"] / SERVE["gen_len"])):
+        split = _device_split(prof)
+        if split["total"] == 0.0:
+            log(f"  serve {stage}: warm {wall:.3f} ms (host clock); the "
+                f"profiler saw no device time: breakdown not measured")
+            continue
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in split.items()
+                          if k != "total")
+        log(f"  serve {stage}: warm {wall:.3f} ms (host clock); device "
+            f"{split['total']:.3f} ms = {parts} ms; device idle "
+            f"{max(0.0, 1 - split['total'] / wall):.1%} of the warm run")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -532,7 +986,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     log("phase 3: kernels against their plain versions")
-    check_kernels(device, failures)
+    check_cases(device, failures, kernel_cases(device))
 
     log("phase 4: main path, api.plan -> api.compile -> run")
     main_run = run_cells(device, failures)
@@ -547,6 +1001,26 @@ def main() -> int:
 
     log("phase 7: whole cells, warm (host clock; device time by profiler)")
     cell_breakdown(device, main_run)
+
+    log("phase 8: the LM kernels against their plain versions")
+    check_cases(device, failures, lm_kernel_cases(device))
+    check_flash_grad(device, failures)
+
+    log("phase 9: Hymba-1.5B serves batch 4 x 1536 tokens, 32 greedy "
+        "tokens; flash attention's entry point")
+    lm = serve_hymba(device, failures)
+    flash_launches = flash_path(device, failures)
+
+    log("phase 10: serving consistency at full width; the serve path's "
+        "banded-mixer configurations against their plain versions")
+    serve_consistency(device, failures, lm)
+
+    log("phase 6 (LM kernels): kernel times at the serve path's shapes")
+    rows += time_lm_kernels(device, lm, flash_launches, failures)
+
+    log("phase 7 (serve cell): one warm prefill and decode step, device "
+        "time by profiler")
+    serve_breakdown(device, lm)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     if failures:

@@ -33,7 +33,8 @@ from repro_torch.core.stencil_spec import StencilSpec
 
 __all__ = ["StencilPlan", "StencilEngine", "choose_cover", "legal_covers",
            "default_block", "max_fuse_depth_for", "Backend",
-           "register_backend", "get_backend", "backend_names"]
+           "register_backend", "get_backend", "backend_names",
+           "resolve_device"]
 
 Tensor = torch.Tensor
 
@@ -50,9 +51,10 @@ def default_block(spec: StencilSpec) -> tuple[int, ...]:
     return (32, 128) if spec.ndim == 2 else (8, 16, 64)[:spec.ndim]
 
 
-def _resolve_device(device) -> torch.device:
-    """The engine's device; the default ``"cuda"`` raises when no card is
-    present rather than silently running on the CPU."""
+def resolve_device(device) -> torch.device:
+    """A port entry point's device (the engine's, the LM serving path's);
+    the default ``"cuda"`` raises when no card is present rather than
+    silently running on the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -283,7 +285,7 @@ class StencilEngine:
                  unroll: tuple[int, ...] | None = None,
                  boundary: str = "valid", scratch: str = "pingpong",
                  device="cuda"):
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         if block is None:
             block = default_block(spec)
         if option == "auto":

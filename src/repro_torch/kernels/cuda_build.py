@@ -30,7 +30,9 @@ BUILD_DIR = Path(__file__).resolve().with_name("build")
 
 #: kernel library name -> source file under csrc/
 SOURCES = {"stencil_step": "stencil_step.cu",
-           "stencil_sweep": "stencil_sweep.cu"}
+           "stencil_sweep": "stencil_sweep.cu",
+           "banded_mixer": "banded_mixer.cu",
+           "flash_attention": "flash_attention.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -9,6 +9,9 @@ bit-exact against per-state output.
 
 A CPU tensor goes through the kernels' plain versions; a CUDA tensor
 launches the kernels (see :mod:`repro_torch.kernels.stencil_mxu`).
+
+:func:`banded_mix` is the LM stack's causal banded mixer over
+``(..., T, D)`` (kernel in :mod:`repro_torch.kernels.banded_mixer`).
 """
 from __future__ import annotations
 
@@ -21,10 +24,10 @@ from repro_torch.core import coefficient_lines as cl
 from repro_torch.core import halo
 from repro_torch.core.matrixization import center_slice
 from repro_torch.core.stencil_spec import StencilSpec
-from repro_torch.kernels import stencil_mxu
+from repro_torch.kernels import banded_mixer, stencil_mxu
 
 __all__ = ["stencil_matrixized", "stencil_sweep_matrixized",
-           "cuda_backend_core", "cuda_sweep_core"]
+           "cuda_backend_core", "cuda_sweep_core", "banded_mix"]
 
 
 def cuda_backend_core(plan):
@@ -268,3 +271,34 @@ def stencil_sweep_matrixized(x: torch.Tensor, *, spec: StencilSpec,
         return stencil_mxu.sweep_cuda_call(xc, plan, aux=aux)
 
     return _run_batched(x, spec, w, block, out_sizes, call)
+
+
+# ---------------------------------------------------------------------------
+# Causal banded mixer (LM integration)
+# ---------------------------------------------------------------------------
+
+def banded_mix(x: torch.Tensor, band: torch.Tensor, block_t: int = 128,
+               block_d: int = 128) -> torch.Tensor:
+    """Causal banded mix: ``y[t] = sum_s band[s] * x[t-s]``, zero history.
+
+    ``x``: (..., T, D); ``band``: (W,) shared or (W, D) depthwise.  The
+    leading axes fold into the kernel's batch (grid) dimension; the tile is
+    ``(min(block_t, T), min(block_d, D))`` and ragged T and D are masked in
+    the kernel, so nothing is padded.  A CPU tensor runs the plain version,
+    a CUDA tensor launches the kernel or raises.
+
+    Forward only: the reference's ``custom_vjp`` (dx as flip-mix-flip
+    through the same kernel, dband as an einsum) becomes a
+    ``torch.autograd.Function`` with the training slice (ROADMAP Queue 1
+    item 9).
+    """
+    if x.ndim < 2:
+        raise ValueError(f"x must be (..., T, D), got {tuple(x.shape)}")
+    t_len, d = x.shape[-2], x.shape[-1]
+    xb = x.reshape((-1, t_len, d)).contiguous()
+    bt, bd = min(block_t, max(t_len, 1)), min(block_d, max(d, 1))
+    chunk = banded_mixer.MAX_BATCH
+    outs = [banded_mixer.banded_mixer_cuda_call(xb[i:i + chunk], band, bt, bd)
+            for i in range(0, max(xb.shape[0], 1), chunk)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return out.reshape(x.shape)

@@ -2,7 +2,8 @@
 
 These are the reference semantics every kernel and every matrixized
 evaluation of the port is checked against: the textbook Eq. 1 gather
-loop, written as shifted-slab accumulation over whole tensors.
+loop, written as shifted-slab accumulation over whole tensors, and its
+1-D causal counterpart for the LM stack (``banded_mixer_ref``).
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from repro_torch.core import halo
 from repro_torch.core.matrixization import center_slice
 from repro_torch.core.stencil_spec import StencilSpec
 
-__all__ = ["stencil_ref", "stencil_ref_conv", "scenario_scale"]
+__all__ = ["stencil_ref", "stencil_ref_conv", "scenario_scale",
+           "banded_mixer_ref"]
 
 
 def scenario_scale(acc: torch.Tensor, spec: StencilSpec, ndim: int,
@@ -87,3 +89,23 @@ def stencil_ref_conv(x: torch.Tensor, spec: StencilSpec) -> torch.Tensor:
     conv = F.conv2d if ndim == 2 else F.conv3d
     out = conv(xb, k)
     return out.reshape(tuple(lead) + tuple(out.shape[2:])).to(x.dtype)
+
+
+def banded_mixer_ref(x: torch.Tensor, band: torch.Tensor) -> torch.Tensor:
+    """Causal banded sequence mixer oracle.
+
+    ``y[t] = sum_{s=0}^{W-1} band[s] * x[t - s]`` with zero history
+    (x: (..., T, D); band: (W,) shared across channels or (W, D) per
+    channel — ``band[s]`` broadcasts either way).  The sum runs in the
+    promoted type of ``x`` and ``band`` (as jnp promotes; torch would keep
+    a 0-d ``band[s]`` out of the promotion) and is cast to ``x.dtype``.
+    """
+    dt = torch.promote_types(x.dtype, band.dtype)
+    xs, band = x.to(dt), band.to(dt)
+    t_len = x.shape[-2]
+    acc = None
+    for s in range(band.shape[0]):
+        shifted = F.pad(xs, (0, 0, s, 0))[..., :t_len, :]
+        term = band[s] * shifted
+        acc = term if acc is None else acc + term
+    return acc.to(x.dtype)

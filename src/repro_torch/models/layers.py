@@ -1,0 +1,96 @@
+"""Shared neural building blocks of the LM stack.
+
+Functions on tensors, as the reference's ``repro.models.layers``:
+``dense`` weights are ``(d_in, d_out)`` and apply as ``x @ w``; parameter
+dicts hold the reference's leaf names.  The ``*_init`` functions draw the
+reference's distributions from an explicit ``torch.Generator`` (the
+values differ from JAX's; parity tests carry JAX's weights across with
+``transformer.params_from_numpy``).
+
+The reference casts every weight to the compute dtype at each ``dense``
+call; the port's modules hold each weight in the dtype it is read in
+(cast once when the model is built), so ``dense`` casts nothing.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["dense_init", "dense", "rms_norm_init", "rms_norm", "rope",
+           "mlp_init", "mlp", "embed_init", "init_attention"]
+
+
+def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:
+    return torch.randn(tuple(shape), generator=gen, device=device,
+                       dtype=torch.float32)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, device,
+               scale: float | None = None) -> torch.Tensor:
+    s = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return _normal(gen, (d_in, d_out), device) * s
+
+
+def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return x @ w
+
+
+def rms_norm_init(d: int, device) -> torch.Tensor:
+    return torch.zeros((d,), dtype=torch.float32, device=device)  # (1 + w)
+
+
+def rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
+    """Gemma-style RMS norm: f32 inside, scale ``1 + w``, output in
+    ``x.dtype``."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * (1.0 + w.to(torch.float32))
+    return y.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4):
+    """Rotary embedding. x: (..., S, H, Dh); positions: (..., S).  Angles
+    in f32, output in ``x.dtype``."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freq    # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def init_attention(gen: torch.Generator, cfg, device) -> dict:
+    d, h, kvh, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {"wq": dense_init(gen, d, h * dh, device),
+         "wk": dense_init(gen, d, kvh * dh, device),
+         "wv": dense_init(gen, d, kvh * dh, device),
+         "wo": dense_init(gen, h * dh, d, device,
+                          scale=1.0 / math.sqrt(h * dh))}
+    if cfg.qk_norm:
+        p["q_norm"] = rms_norm_init(dh, device)
+        p["k_norm"] = rms_norm_init(dh, device)
+    return p
+
+
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, device) -> dict:
+    return {"wi_gate": dense_init(gen, d, d_ff, device),
+            "wi_up": dense_init(gen, d, d_ff, device),
+            "wo": dense_init(gen, d_ff, d, device)}
+
+
+def mlp(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """Gated MLP: SwiGLU (``silu``) or GeGLU (tanh-approximate ``gelu``)."""
+    g = dense(p["wi_gate"], x)
+    u = dense(p["wi_up"], x)
+    a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+    return dense(p["wo"], a * u)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, device):
+    return _normal(gen, (vocab, d), device) * 0.02

@@ -1,0 +1,317 @@
+"""The decoder stack of the LM slice: Hymba's hybrid layers (parallel
+attention + SSM heads) and plain attention layers.
+
+A config maps to a *layer pattern* (one cycle of layer kinds, e.g.
+Hymba's seven windowed + one global hybrid layer); the reference scans
+that cycle ``num_layers / len(pattern)`` times over parameters stacked by
+cycle.  Here :class:`Transformer` is an ``nn.Module`` holding one
+:class:`Layer` per layer in an ``nn.ModuleList`` (layer ``c*P + i`` is
+cycle ``c``, pattern position ``i``), and the scan is a loop over them.
+
+Each weight is held in the dtype it is read in — the compute dtype for
+every matrix, the embedding and the SSM's ``dt_bias``/``d_skip``; the
+parameter dtype for the norms, the conv band and ``a_log``, which the
+reference reads in f32 — so the reference's cast at every ``dense`` call
+happens once, when the model is built.  The module is for inference: its
+parameters do not require grad.
+
+Ported layer kinds: ``hybrid`` and ``attn`` with a dense MLP.  RWKV,
+cross-attention, MoE, codebooks and image tokens raise
+``NotImplementedError`` (ROADMAP Queue 1 item 9).
+"""
+from __future__ import annotations
+
+from typing import Iterable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import kv_cache as kvc
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.attention_chunked import chunked_attention
+from repro_torch.models.layers import (dense, dense_init, embed_init,
+                                       init_attention, mlp, mlp_init,
+                                       rms_norm, rms_norm_init, rope)
+
+__all__ = ["build_pattern", "Layer", "Transformer", "init_params",
+           "params_from_numpy", "init_caches", "apply_layer", "dtype_of"]
+
+#: leaves the reference reads as f32 (``.astype(float32)``); every other
+#: leaf is read in the compute dtype
+_PARAM_DTYPE_LEAVES = frozenset({"ln1", "ln2", "norm_attn", "norm_ssm",
+                                 "final_norm", "q_norm", "k_norm",
+                                 "conv_band", "a_log"})
+
+_NOT_PORTED = "not ported yet (ROADMAP.md Queue 1 item 9)"
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+def build_pattern(cfg: ModelConfig):
+    if cfg.rwkv_mode:
+        return [("rwkv", None)]
+    if cfg.family == "hybrid":
+        p = cfg.local_global_period or 1
+        if p > 1:
+            return [("hybrid", cfg.sliding_window)] * (p - 1) + [("hybrid", None)]
+        return [("hybrid", cfg.sliding_window)]
+    if cfg.local_global_period and cfg.local_global_period > 1:
+        p = cfg.local_global_period
+        return [("attn", cfg.sliding_window)] * (p - 1) + [("attn", None)]
+    kind = "attn_cross" if cfg.cross_attn else "attn"
+    return [(kind, cfg.sliding_window)]
+
+
+def _check_ported(cfg: ModelConfig) -> list:
+    pattern = build_pattern(cfg)
+    for what, on in (("RWKV layers", cfg.rwkv_mode),
+                     ("cross-attention layers", cfg.cross_attn),
+                     ("MoE FFNs", cfg.moe is not None),
+                     ("codebook embeddings", cfg.num_codebooks),
+                     ("image tokens", cfg.num_image_tokens)):
+        if on:
+            raise NotImplementedError(f"{cfg.name}: {what} are {_NOT_PORTED}")
+    if cfg.num_layers % len(pattern):
+        raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} % "
+                         f"pattern {len(pattern)}")
+    return pattern
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+def _leaf(name: str, value: torch.Tensor, cfg: ModelConfig, device):
+    t = torch.as_tensor(value).to(device=device,
+                                  dtype=dtype_of(cfg.param_dtype))
+    if name not in _PARAM_DTYPE_LEAVES:
+        t = t.to(dtype_of(cfg.compute_dtype))
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Layer(nn.Module):
+    """One decoder layer: ``ln1``/``ln2``, ``attn`` and ``ffn`` (and, for
+    ``hybrid``, ``ssm``, ``norm_attn`` and ``norm_ssm``), with the
+    reference's leaf names."""
+
+    def __init__(self, kind: str, window: Optional[int], tree: dict,
+                 cfg: ModelConfig, device):
+        super().__init__()
+        if kind not in ("attn", "hybrid"):
+            raise NotImplementedError(f"layer kind {kind!r} is {_NOT_PORTED}")
+        self.kind, self.window = kind, window
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                setattr(self, name, nn.ParameterDict(
+                    {k: _leaf(k, v, cfg, device) for k, v in value.items()}))
+            else:
+                setattr(self, name, _leaf(name, value, cfg, device))
+
+
+class Transformer(nn.Module):
+    """The decoder: ``embed``, ``layers`` (one :class:`Layer` each),
+    ``final_norm`` and ``lm_head`` (absent with tied embeddings)."""
+
+    def __init__(self, cfg: ModelConfig, embed, layers: Iterable[dict],
+                 final_norm, lm_head=None, *, device):
+        super().__init__()
+        pattern = _check_ported(cfg)
+        self.cfg = cfg
+        self.embed = _leaf("embed", embed, cfg, device)
+        self.layers = nn.ModuleList()
+        for i, tree in enumerate(layers):   # one at a time: f32 leaves drop
+            kind, window = pattern[i % len(pattern)]
+            self.layers.append(Layer(kind, window, tree, cfg, device))
+        if len(self.layers) != cfg.num_layers:
+            raise ValueError(f"{len(self.layers)} layers given, config has "
+                             f"{cfg.num_layers}")
+        self.final_norm = _leaf("final_norm", final_norm, cfg, device)
+        self.lm_head = None if cfg.tie_embeddings else \
+            _leaf("lm_head", lm_head, cfg, device)
+
+    def forward(self, tokens: torch.Tensor, caches: Optional[list] = None,
+                mode: str = "train", start_pos: int = 0, head: bool = True):
+        """Returns (logits_or_hidden, new_caches, aux_loss).
+
+        mode: "train" (no cache) | "prefill" (write caches) | "decode" (1
+        token).  ``start_pos``: absolute position of the first token
+        (decode: the cache length).  ``head=False`` returns the final-norm
+        hidden states instead of logits.
+        """
+        cfg = self.cfg
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"mode must be train, prefill or decode, got "
+                             f"{mode!r}")
+        if (caches is None) != (mode == "train"):
+            raise ValueError(f"mode {mode!r} {'needs' if caches is None else 'takes no'}"
+                             f" caches")
+        x = self.embed[tokens]
+        positions = start_pos + torch.arange(x.shape[1], device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        new_caches = None if caches is None else []
+        for i, layer in enumerate(self.layers):
+            x, nc, a = apply_layer(layer, cfg, x, positions,
+                                   None if caches is None else caches[i],
+                                   mode)
+            aux = aux + a
+            if caches is not None:
+                new_caches.append(nc)
+        x = rms_norm(self.final_norm, x, cfg.norm_eps)
+        if not head:
+            return x, new_caches, aux
+        if cfg.tie_embeddings:
+            return x @ self.embed.T, new_caches, aux
+        return dense(self.lm_head, x), new_caches, aux
+
+
+# ---------------------------------------------------------------------------
+# Parameters: seeded init on the device, or carried across from JAX
+# ---------------------------------------------------------------------------
+
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                device) -> dict:
+    d = cfg.d_model
+    p = {"ln1": rms_norm_init(d, device), "ln2": rms_norm_init(d, device),
+         "attn": init_attention(gen, cfg, device)}
+    if kind == "hybrid":
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg, device)
+        p["norm_attn"] = rms_norm_init(d, device)
+        p["norm_ssm"] = rms_norm_init(d, device)
+    p["ffn"] = mlp_init(gen, d, cfg.d_ff, device)
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device) -> Transformer:
+    """A model with the reference's initial distributions, drawn on
+    ``device`` from ``generator`` (a generator of that device).  No weight
+    file is read; the values differ from JAX's for the same seed."""
+    pattern = _check_ported(cfg)
+    embed = embed_init(generator, cfg.vocab_size, cfg.d_model, device)
+    lm_head = None if cfg.tie_embeddings else dense_init(
+        generator, cfg.d_model, cfg.vocab_size, device)
+    layers = (_init_layer(generator, cfg, pattern[i % len(pattern)][0], device)
+              for i in range(cfg.num_layers))
+    return Transformer(cfg, embed, layers, rms_norm_init(cfg.d_model, device),
+                       lm_head, device=device)
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> Transformer:
+    """Load the reference's parameter pytree, as numpy
+    (``jax.tree.map(np.asarray, tf.init_params(key, cfg))``), into a model.
+
+    The reference stacks each pattern position over cycles: layer
+    ``c*P + i`` is ``tree["layers"][i][...][c]``.  ``dense`` weights keep
+    their ``(d_in, d_out)`` layout (the port applies ``x @ w`` too).
+    """
+    pattern = _check_ported(cfg)
+    period = len(pattern)
+
+    def take(node, c):
+        if isinstance(node, dict):
+            return {k: take(v, c) for k, v in node.items()}
+        return np.array(node[c])       # a writable copy of one cycle
+
+    layers = (take(tree["layers"][i % period], i // period)
+              for i in range(cfg.num_layers))
+    return Transformer(cfg, np.array(tree["embed"]), layers,
+                       np.array(tree["final_norm"]),
+                       None if cfg.tie_embeddings
+                       else np.array(tree["lm_head"]), device=device)
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device) -> list:
+    """One cache per layer: a KV cache (ring when the layer's window is
+    shorter than ``max_len``), and for hybrid layers with the SSM state."""
+    pattern = _check_ported(cfg)
+    dtype = dtype_of(cfg.compute_dtype)
+    caches = []
+    for i in range(cfg.num_layers):
+        kind, window = pattern[i % len(pattern)]
+        attn_c = kvc.init_kv_cache(batch, max_len, cfg.num_kv_heads,
+                                   cfg.head_dim, window, dtype,
+                                   device=device)
+        caches.append((attn_c, ssm_mod.init_ssm_state(batch, cfg, dtype,
+                                                      device=device))
+                      if kind == "hybrid" else attn_c)
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# Layer application
+# ---------------------------------------------------------------------------
+
+def _project_qkv(p, x, cfg, positions):
+    b, s, _ = x.shape
+    h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = dense(p["wq"], x).reshape(b, s, h, dh)
+    k = dense(p["wk"], x).reshape(b, s, kvh, dh)
+    v = dense(p["wv"], x).reshape(b, s, kvh, dh)
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+    return rope(q, positions, cfg.rope_theta), \
+        rope(k, positions, cfg.rope_theta), v
+
+
+def _self_attention(p, x, cfg, positions, cache, window, mode):
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    with record_function("attention"):
+        if mode == "decode":
+            new_cache = kvc.decode_write(cache, k, v)
+            kk, vv, kpos, kmask = kvc.cache_view(new_cache)
+            out = chunked_attention(q, kk.to(x.dtype), vv.to(x.dtype),
+                                    q_positions=positions, k_positions=kpos,
+                                    window=window, softcap=cfg.attn_softcap,
+                                    kv_mask=kmask)
+        else:
+            new_cache = None if cache is None else \
+                kvc.prefill_write(cache, k, v)
+            out = chunked_attention(q, k, v, q_positions=positions,
+                                    k_positions=positions, window=window,
+                                    softcap=cfg.attn_softcap)
+    return dense(p["wo"], out.reshape(b, s, -1)), new_cache
+
+
+def _ffn(p, x, cfg):
+    return mlp(p.ffn, x, cfg.mlp_act), torch.zeros(
+        (), dtype=torch.float32, device=x.device)
+
+
+def apply_layer(layer: Layer, cfg: ModelConfig, x, positions, cache, mode):
+    """One layer; returns (x, new_cache, aux_loss)."""
+    h = rms_norm(layer.ln1, x, cfg.norm_eps)
+    if layer.kind == "hybrid":
+        attn_cache, ssm_state = cache if cache is not None else (None, None)
+        attn_out, new_attn_cache = _self_attention(
+            layer.attn, h, cfg, positions, attn_cache, layer.window, mode)
+        if mode == "decode":
+            ssm_out, new_ssm = ssm_mod.ssm_step(layer.ssm, h[:, 0], cfg,
+                                                ssm_state)
+            ssm_out = ssm_out[:, None]
+        else:
+            ssm_out, new_ssm = ssm_mod.ssm_forward(
+                layer.ssm, h, cfg,
+                state=ssm_state if mode == "prefill" else None)
+        mixed = 0.5 * (rms_norm(layer.norm_attn, attn_out, cfg.norm_eps)
+                       + rms_norm(layer.norm_ssm, ssm_out, cfg.norm_eps))
+        x = x + mixed
+        new_cache = None if cache is None else (new_attn_cache, new_ssm)
+    else:
+        y, new_cache = _self_attention(layer.attn, h, cfg, positions, cache,
+                                       layer.window, mode)
+        x = x + y
+    h2 = rms_norm(layer.ln2, x, cfg.norm_eps)
+    y, aux = _ffn(layer, h2, cfg)
+    return x + y, new_cache, aux
