@@ -14,7 +14,9 @@ Phases:
    register report is printed);
 3. hold each kernel against its plain PyTorch version on the card, at
    1000^2 and 90^3 (not tile multiples), f32 and bf16, constant and
-   varying+masked, unbatched and batch 3, both sweep scratch modes;
+   varying+masked, unbatched and batch 3, both sweep scratch modes; and
+   the step kernel at tiles whose last extent is not a multiple of its 8
+   outputs per thread and on input rows that are not 16-byte aligned;
 4. drive the port's main path — ``api.plan`` -> ``api.compile`` -> run,
    backends restricted to ``["cuda"]`` — on four full-size cells and check
    each against the port's gather oracle (``reference_evolve``) on the card
@@ -25,15 +27,17 @@ Phases:
    compiled engine) against its plain version at the path's shapes;
 6. time each kernel with CUDA events at the path's shapes next to its
    roofline bound (data-sheet 3.35 TB/s and 67 TFLOP/s f32), its plain
-   version and one PyTorch library call (``F.conv2d`` with TF32 off), and
+   version and one PyTorch library call (``F.conv2d`` with TF32 off); the
+   step kernel again on the star3d_r2 cell's step against ``F.conv3d``;
    the sweep at the path's tile against a 128x128 tile, in turns;
 7. time each cell's warm run on the host clock and break one profiled
    run's device time into the two kernels and everything else;
 8. hold the LM kernels against their plain versions: the banded mixer
    (shared and depthwise band, W in {1, 2, 4}, T = 1539, D = 3237, batch 1
    and 4, f32 and bf16) and flash attention (causal and full, f32 and
-   bf16, S in {128, 1536}, Dh in {16, 64}), and ``flash_attention``'s
-   gradients against autograd through the plain version;
+   bf16, B = 4, H = 25, S in {40, 128, 1536}, Dh in {8, 16, 64, 128}), and
+   ``flash_attention``'s gradients against autograd through the plain
+   version;
 9. build Hymba-1.5B at full width and depth on the card from a seeded
    generator and serve batch 4 x 1536-token prompts for 32 greedy tokens
    through ``launch.serve.serve`` (cold, then warm): finite logits, ring
@@ -47,8 +51,10 @@ Phases:
 
 then phase 6's timing for the two LM kernels (banded mixer at the
 prefill's and a decode step's shape, flash attention at (4, 25, 1536, 64)
-causal f32; library yardsticks ``F.conv1d`` and SDPA) and phase 7's
-breakdown of one warm prefill and decode step of the serve cell.
+causal in f32 and in bf16; library yardsticks ``F.conv1d`` and SDPA;
+flash attention's bound at the tensor-core rate its arithmetic runs at,
+3xTF32 in f32 and bf16 in bf16) and phase 7's breakdown of one warm
+prefill and decode step of the serve cell.
 
 Any kernel-vs-plain error over its tolerance (phases 3, 5, 6, 8 and 10),
 any main-path cell off its oracle, or any serve check that fails (phases
@@ -71,10 +77,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data sheet: HBM3 bandwidth, and the f32 rate outside the tensor
-# cores (the kernels are f32 FMAs without TF32).
+# H100 SXM data sheet: HBM3 bandwidth, the f32 rate outside the tensor cores
+# (the stencil kernels and the banded mixer are f32 FMAs), and the dense
+# tensor-core rates flash attention runs at: bf16, and TF32, of which f32
+# takes three products per f32 product (3xTF32, the repo's rule for f32 on
+# tensor cores).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12
+TF32_TC_FLOPS_PER_S = 495e12
+# (rate, what bound_by names) per kind of arithmetic
+RATES = {"f32": (F32_FLOPS_PER_S, "operations"),
+         "3xtf32": (TF32_TC_FLOPS_PER_S / 3, "operations, 3xTF32"),
+         "bf16": (BF16_TC_FLOPS_PER_S, "operations, bf16 tensor cores")}
 
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 E2E_ATOL = 1e-4
@@ -94,6 +109,14 @@ CONSISTENCY_REL_TOL = 1e-3
 # phase 3: (suite name, cover, tile, output extent, sweep steps) per rank
 KERNEL_CASES = {2: ("star2d_r2", "orthogonal", (32, 128), (1000, 1000), 3),
                 3: ("box3d_r1", "parallel", (8, 8, 32), (90, 90, 90), 2)}
+# phase 3, the step kernel's edges: (suite name, tile, output extent) with
+# tiles whose last extent is not a multiple of its 8 outputs per thread,
+# and input rows that are not 16-byte aligned (4-byte copies)
+STEP_EDGE_CASES = (("star2d_r2", (16, 20), (97, 103)),
+                   ("box2d_r1", (8, 12), (40, 37)),
+                   ("star3d_r2", (4, 8, 12), (20, 17, 25)),
+                   ("box3d_r1", (2, 6, 6), (10, 12, 11)),
+                   ("star2d_r1", (16, 128), (64, 8190)))
 
 # phase 4: the main path at full size (periodic grids)
 CELLS = (
@@ -111,6 +134,10 @@ CELLS = (
 # phases 8-10: the LM slice at Hymba-1.5B's widths
 BANDED_RAGGED = (1539, 3200 + 37)       # (T, D): prefill rows, ragged D
 FLASH_SHAPE = (4, 25, 1536, 64)         # (B, H, S, Dh)
+# phase 8: (S, Dh) of flash attention at (4, 25, S, Dh); S = 40 is not a
+# multiple of the kernel's 64-row tiles (the wrapper's blocks are then 40)
+FLASH_CASES = ((128, 16), (128, 64), (1536, 16), (1536, 64), (40, 8),
+               (40, 128), (1536, 8), (1536, 128))
 SERVE = dict(batch=4, prompt_len=1536, gen_len=32)
 CONSISTENCY = dict(batch=2, prompt_len=1040, split=1000, seed=2)
 
@@ -198,6 +225,45 @@ def kernel_cases(device, cases=KERNEL_CASES):
                         yield (label, sm.sweep_cuda_call(x, plan, aux),
                                sm.sweep_plain(x, plan, aux),
                                KERNEL_TOL[dtype])
+
+
+def step_edge_cases(device, cases=STEP_EDGE_CASES):
+    """Yield (label, kernel output, plain output, tolerance) for the step
+    kernel at :data:`STEP_EDGE_CASES`: constant and varying+masked, f32
+    and bf16, unbatched and batch 3."""
+    import numpy as np
+    import torch
+    from repro_torch.core import coefficient_lines as cl
+    from repro_torch.core import stencil_spec as ss
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_mxu as sm
+
+    seed = 300
+    for name, block, out in cases:
+        base = ss.PAPER_SUITE()[name]
+        nd, r = base.ndim, base.order
+        for scenario in ("constant", "varying+masked"):
+            spec = base if scenario == "constant" else base.with_field(
+                np.ones(out), domain_mask=np.ones(out, bool))
+            cover = cl.make_cover(spec, "parallel")
+            for dtype in ("float32", "bfloat16"):
+                for batch in (None, 3):
+                    seed += 1
+                    lead = (batch,) if batch else ()
+                    x = seeded_normal(lead + tuple(n + 2 * r for n in out),
+                                      seed, device)
+                    x = ops._pad_to_multiple(x.to(getattr(torch, dtype)),
+                                             block, r, nd)
+                    aux = () if spec.is_constant_dense else seeded_aux(
+                        tuple(s - 2 * r for s in x.shape[-nd:]), seed + 100,
+                        device)
+                    plan = sm.build_kernel_plan(spec, cover, block,
+                                                batch=batch)
+                    yield (f"step  {name} tile {block} {out} {dtype} "
+                           f"{scenario} batch={batch}",
+                           sm.stencil_cuda_call(x, plan, aux),
+                           sm.stencil_step_plain(x, plan, aux),
+                           KERNEL_TOL[dtype])
 
 
 def check_cases(device, failures: list, cases) -> None:
@@ -375,16 +441,29 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(read_bytes: float, write_bytes: float, flops: float):
+def bound(read_bytes: float, write_bytes: float, flops: float,
+          rate: str = "f32"):
+    """(least ms, what bounds it): the bytes over the HBM rate against the
+    flops over ``RATES[rate]``."""
+    flops_per_s, ops_label = RATES[rate]
     t_bytes = (read_bytes + write_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = flops / flops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, ops_label)
+
+
+def flash_flops(shape) -> float:
+    """Flops of one causal attention forward: Q K^T and P V over the kept
+    (query, key) pairs, 2 flops each per Dh element — S(S+1)/2 pairs per
+    (b, h), so 2(S+1) flops per output element."""
+    b, h, s, dh = shape
+    return 2.0 * (s + 1) * b * h * s * dh
 
 
 def time_kernels(device, main: dict, failures: list) -> list[dict]:
     """Time the two kernels at the main path's shapes: the step kernel on
     the box2d_r1 cell's fused operator, the sweep kernel on the star2d_r2
-    cell's deepest chunk."""
+    cell's deepest chunk; then the step kernel a second time on the
+    star3d_r2 cell's step against ``F.conv3d`` (a logged line)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import temporal
@@ -396,7 +475,10 @@ def time_kernels(device, main: dict, failures: list) -> list[dict]:
              "src/repro/kernels/stencil_mxu.py:277"),
             ("stencil_sweep", CELLS[0],
              "src/repro_torch/kernels/csrc/stencil_sweep.cu",
-             "src/repro/kernels/stencil_mxu.py:456")):
+             "src/repro/kernels/stencil_mxu.py:456"),
+            ("stencil_step", CELLS[2],
+             "src/repro_torch/kernels/csrc/stencil_step.cu",
+             "src/repro/kernels/stencil_mxu.py:277")):
         case = [c for c in path_launches(cell, main["runs"][cell["label"]],
                                          device) if c["name"] == name][-1]
         spec, steps, x = case["spec"], case["steps"], case["x"]
@@ -405,12 +487,17 @@ def time_kernels(device, main: dict, failures: list) -> list[dict]:
         weight = torch.as_tensor(
             temporal.fuse_steps(spec, steps).gather_coeffs,
             dtype=torch.float32, device=device)[None, None]
-        rows.append(_time_row(
+        conv = F.conv2d if spec.ndim == 2 else F.conv3d
+        row = _time_row(
             name, source, replaces, main["launches"][name], failures,
             kernel=case["kernel"], plain=case["plain"],
-            library=lambda x=x, wt=weight: F.conv2d(x[None, None], wt)[0, 0],
+            library=lambda x=x, wt=weight, conv=conv: conv(
+                x[None, None], wt)[0, 0],
             inputs=(x, *case["aux"]), flops_per_out=2 * spec.taps * steps,
-            desc=case["label"]))
+            desc=case["label"], library_name=conv.__name__,
+            library_reps=20 if spec.ndim == 2 else 3)
+        if cell is not CELLS[2]:
+            rows.append(row)
         del case, x
     return rows
 
@@ -447,11 +534,11 @@ def compare_sweep_tiles(device, main: dict, failures: list) -> None:
 
 def _time_row(name, source, replaces, launches, failures, *, kernel, plain,
               library, inputs, flops_per_out, desc, tol=None,
-              library_name="F.conv2d") -> dict:
+              library_name="F.conv2d", rate="f32", library_reps=20) -> dict:
     """Time ``kernel``, ``plain`` and ``library`` at one shape with CUDA
     events and return the kernel's row of the ``kernels`` line; the bound
     counts each tensor of ``inputs`` read once and the output written
-    once."""
+    once, and the flops at ``RATES[rate]``."""
     import torch
     got = kernel()
     want = plain()
@@ -467,10 +554,10 @@ def _time_row(name, source, replaces, launches, failures, *, kernel, plain,
     n_out = got.numel()
     ms = cuda_ms(kernel, reps=20)
     plain_ms = cuda_ms(plain, reps=5, warmup=1)
-    library_ms = cuda_ms(library, reps=20)
+    library_ms = cuda_ms(library, reps=library_reps, warmup=1)
     bound_ms, bound_by = bound(
         sum(a.numel() * a.element_size() for a in inputs),
-        n_out * got.element_size(), flops_per_out * n_out)
+        n_out * got.element_size(), flops_per_out * n_out, rate)
     log(f"  {desc}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"{library_name} {library_ms:.3f} ms (max|library-plain| "
         f"{lib_err:.2e}), "
@@ -492,7 +579,7 @@ def cell_breakdown(device, main: dict) -> None:
     """For each cell, a warm run of the compiled executable: its time on
     the host clock (median of 3, each ending in a synchronize), and from
     one profiled run the device time of the two kernels and of every other
-    device op (pads, copies, tap tables).  The device's idle share is that
+    device op (pads, copies).  The device's idle share is that
     device time against the unprofiled warm run (the profiler slows the
     host, so the profiled run's own wall time is longer)."""
     import torch
@@ -552,7 +639,7 @@ def lm_kernel_cases(device):
     """Yield (label, kernel output, plain output, tolerance): the banded
     mixer (both band kinds, W in {1, 2, 4}, ragged T and D, batch 1 and
     4, f32 and bf16) and flash attention (causal and full, f32 and bf16,
-    S in {128, 1536}, Dh in {16, 64}) at Hymba's widths."""
+    (S, Dh) in :data:`FLASH_CASES`) at Hymba's batch and heads."""
     import torch
     from repro_torch.kernels import banded_mixer as bm
     from repro_torch.kernels import flash_attention as fa
@@ -575,24 +662,23 @@ def lm_kernel_cases(device):
                            bm.banded_mixer_plain(x, band), KERNEL_TOL[dtype])
     for causal in (True, False):
         for dtype in ("float32", "bfloat16"):
-            for s in (128, 1536):
-                for dh in (16, 64):
-                    seed += 3
-                    q, k, v = (seeded_normal(
-                        (4, 25, s, dh), seed + i, device).to(
-                        getattr(torch, dtype)) for i in range(3))
-                    plain = fa.flash_attention_plain(q, k, v, causal)
-                    tol, bar = FLASH_TOL[dtype], ""
-                    if dtype == "bfloat16":
-                        peak = plain.float().abs().max().item()
-                        tol = min(tol, FLASH_BF16_REL_TOL * peak)
-                        bar = (f" [tol = min({FLASH_TOL[dtype]:g}, "
-                               f"{FLASH_BF16_REL_TOL:g} x max|plain| "
-                               f"{peak:.3g})]")
-                    yield (f"flash_attention causal={causal} {dtype} "
-                           f"q{tuple(q.shape)}{bar}",
-                           fa.flash_attention_cuda(q, k, v, causal=causal),
-                           plain, tol)
+            for s, dh in FLASH_CASES:
+                seed += 3
+                q, k, v = (seeded_normal(
+                    (4, 25, s, dh), seed + i, device).to(
+                    getattr(torch, dtype)) for i in range(3))
+                plain = fa.flash_attention_plain(q, k, v, causal)
+                tol, bar = FLASH_TOL[dtype], ""
+                if dtype == "bfloat16":
+                    peak = plain.float().abs().max().item()
+                    tol = min(tol, FLASH_BF16_REL_TOL * peak)
+                    bar = (f" [tol = min({FLASH_TOL[dtype]:g}, "
+                           f"{FLASH_BF16_REL_TOL:g} x max|plain| "
+                           f"{peak:.3g})]")
+                yield (f"flash_attention causal={causal} {dtype} "
+                       f"q{tuple(q.shape)}{bar}",
+                       fa.flash_attention_cuda(q, k, v, causal=causal),
+                       plain, tol)
 
 
 def check_flash_grad(device, failures: list) -> None:
@@ -820,7 +906,8 @@ def time_lm_kernels(device, lm: dict, flash_launches: int,
     beside it) and flash attention at Hymba's attention widths, with their
     bounds, plain versions and one library call each: ``F.conv1d`` with
     ``groups=D`` on the causally padded input, and
-    ``F.scaled_dot_product_attention(is_causal=True)`` in f32 (TF32 off)."""
+    ``F.scaled_dot_product_attention(is_causal=True)`` in f32 (TF32 off);
+    flash attention is timed again in bf16 (a logged line)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import banded_mixer as bm
@@ -850,22 +937,33 @@ def time_lm_kernels(device, lm: dict, flash_launches: int,
             library_name="F.conv1d(groups=D)")
         if label == "prefill":
             rows.append(row)
-    q, k, v = (seeded_normal(FLASH_SHAPE, 9100 + i, device)
-               for i in range(3))
-    s = FLASH_SHAPE[2]
-    rows.append(_time_row(
-        "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention.py:57", flash_launches, failures,
-        kernel=lambda: fa.flash_attention_cuda(q, k, v, causal=True),
-        plain=lambda: fa.flash_attention_plain(q, k, v, True),
-        library=lambda: F.scaled_dot_product_attention(q, k, v,
-                                                       is_causal=True),
-        inputs=(q, k, v),
-        # causal: QK^T and PV over the S(S+1)/2 kept pairs, 2 flops each
-        # per Dh element -> 2(S+1) flops per output element
-        flops_per_out=2 * (s + 1), tol=FLASH_TOL["float32"],
-        desc=f"flash_attention q{FLASH_SHAPE} f32 causal",
-        library_name="SDPA(is_causal)"))
+    for dtype, rate in (("float32", "3xtf32"), ("bfloat16", "bf16")):
+        q, k, v = (seeded_normal(FLASH_SHAPE, 9100 + i, device).to(
+            getattr(torch, dtype)) for i in range(3))
+        tol = FLASH_TOL[dtype]
+        if dtype == "bfloat16":
+            peak = fa.flash_attention_plain(q, k, v, True).float().abs().max()
+            tol = min(tol, FLASH_BF16_REL_TOL * peak.item())
+        row = _time_row(
+            "flash_attention",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:57", flash_launches,
+            failures,
+            kernel=lambda: fa.flash_attention_cuda(q, k, v, causal=True),
+            plain=lambda: fa.flash_attention_plain(q, k, v, True),
+            library=lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           is_causal=True),
+            inputs=(q, k, v),
+            flops_per_out=flash_flops(FLASH_SHAPE) / q.numel(),
+            tol=tol, desc=f"flash_attention q{FLASH_SHAPE} {dtype} causal",
+            library_name="SDPA(is_causal)", rate=rate)
+        if dtype == "float32":
+            rows.append(row)
+            cores, _ = bound(0.0, 0.0, flash_flops(FLASH_SHAPE), "f32")
+            log(f"  flash_attention f32 bound at the CUDA-core f32 rate "
+                f"({F32_FLOPS_PER_S / 1e12:g} TFLOP/s), which the kernel "
+                f"does not use: {cores:.3f} ms")
+        del q, k, v
     return rows
 
 
@@ -987,6 +1085,7 @@ def main() -> int:
 
     log("phase 3: kernels against their plain versions")
     check_cases(device, failures, kernel_cases(device))
+    check_cases(device, failures, step_edge_cases(device))
 
     log("phase 4: main path, api.plan -> api.compile -> run")
     main_run = run_cells(device, failures)

@@ -52,6 +52,8 @@ __all__ = [
     "inkernel_flops",
     "inkernel_hbm_bytes",
     "block_hbm_bytes",
+    "slab_bytes",
+    "step_slab_pitch",
     "step_smem_bytes",
     "sweep_smem_bytes",
     "sweep_feasible",
@@ -59,6 +61,9 @@ __all__ = [
     "TILE_SMEM_BUDGET",
     "SWEEP_THREADS",
     "SINGLE_SLOTS",
+    "STEP_THREADS",
+    "STEP_V",
+    "STEP_MAX_RUN",
     "SCRATCH_MODES",
     "check_scratch",
 ]
@@ -94,16 +99,52 @@ SMEM_BYTES = 232448
 SWEEP_THREADS = 512
 SINGLE_SLOTS = 32
 
+# The step kernel (kernels/csrc/stencil_step.cu, which defines the same three
+# numbers) runs STEP_THREADS threads a block; each thread computes STEP_V
+# consecutive outputs along the last axis and applies the taps as runs of at
+# most STEP_MAX_RUN consecutive taps along that axis.
+STEP_THREADS = 256
+STEP_V = 8
+STEP_MAX_RUN = 9
+
 #: Shared memory a plan lets one block claim: an SM holds 228 KB, of which
 #: each resident block reserves 1 KB, so two blocks of this size share an
 #: SM and one block's loads overlap the other's arithmetic.
 TILE_SMEM_BUDGET = 233472 // 2 - 1024
 
 
-def step_smem_bytes(block: tuple[int, ...], halo_width: int) -> int:
-    """Shared memory of one step-kernel block: the f32 haloed slab of one
-    state (the batch is a grid dimension, so it does not scale this)."""
+def slab_bytes(block: tuple[int, ...], halo_width: int) -> int:
+    """The f32 haloed slab of one tile of one state, unpadded (the sweep
+    kernel's buffer)."""
     return 4 * int(np.prod([b + 2 * halo_width for b in block]))
+
+
+def step_slab_pitch(block: tuple[int, ...], halo_width: int) -> int:
+    """Row pitch (f32 words) of the step kernel's slab: the haloed row
+    rounded up to 16 bytes, plus ``STEP_V`` words of over-read room when
+    the tile's last extent is not a multiple of ``STEP_V``, then rounded
+    up to 4 (mod 8).  Rows stay 16-byte aligned for the kernel's copies
+    and vector loads, and the two rows a quarter-warp reads at once fall
+    on different banks."""
+    pitch = -(-(block[-1] + 2 * halo_width) // 4) * 4
+    if block[-1] % STEP_V:
+        pitch += STEP_V
+    return pitch + 4 if pitch % 8 == 0 else pitch
+
+
+def step_smem_bytes(block: tuple[int, ...], halo_width: int,
+                    table_words: int | None = None) -> int:
+    """Shared memory of one step-kernel block: the f32 slab of one state at
+    :func:`step_slab_pitch`, rounded up to 16 bytes (the batch is a grid
+    dimension, so it does not scale this), and the tap table of
+    ``table_words`` 32-bit words — by default its bound for a full
+    ``(2*halo_width + 1)``-box of taps, one 4-word run header and one
+    coefficient per tap."""
+    lead = int(np.prod([b + 2 * halo_width for b in block[:-1]]))
+    slab = -(-lead * step_slab_pitch(block, halo_width) // 4) * 4
+    if table_words is None:
+        table_words = 5 * (2 * halo_width + 1) ** len(block)
+    return 4 * (slab + table_words)
 
 
 def sweep_smem_bytes(block: tuple[int, ...], steps: int, order: int,
@@ -114,7 +155,7 @@ def sweep_smem_bytes(block: tuple[int, ...], steps: int, order: int,
     if steps < 1:
         raise ValueError("steps >= 1")
     n_bufs = 1 if check_scratch(scratch) == "single" else 2
-    return n_bufs * step_smem_bytes(block, steps * order)
+    return n_bufs * slab_bytes(block, steps * order)
 
 
 def sweep_feasible(block: tuple[int, ...], steps: int, order: int,

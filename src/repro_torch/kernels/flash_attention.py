@@ -4,9 +4,14 @@ version and a differentiable entry point.
 :func:`flash_attention_cuda` launches ``csrc/flash_attention.cu`` (built
 for ``sm_90a`` by :mod:`cuda_build`), which replaces the JAX package's
 Pallas TPU kernel ``repro.kernels.flash_attention.flash_attention_pallas``:
-one CUDA block per (batch*head, query block), K/V tiles streamed through
-shared memory, the online-softmax update in f32 in the order of the
-reference kernel, scores never written to device memory.
+FlashAttention-2's forward on the tensor cores with ``mma.sync`` — one
+CUDA block of :data:`THREADS` threads per (batch*head, :data:`BLOCK_ROWS`
+query rows), K/V tiles streamed through a cp.async ring of :data:`STAGES`
+buffers in shared memory, the online softmax once per tile in registers,
+bf16 products in bf16 and f32 products in 3xTF32, scores never written to
+device memory.  ``block_q`` and ``block_k`` keep the reference's contract
+(S a multiple of each, after ``min(block, S)``); the kernel's own tiles
+are fixed and it masks a ragged end itself.
 
 :func:`flash_attention` is the differentiable wrapper: the kernel forward
 and the reference's dense-recompute backward (``_bwd``), in plain torch
@@ -15,12 +20,13 @@ the models use ``models.attention_chunked``.
 
 Routing: a CPU tensor runs :func:`flash_attention_plain` (the dense
 oracle); a CUDA tensor launches the kernel or raises — there is no
-fallback and no silently shrunk tile.  The wrapper counts its launches in
+fallback.  The wrapper counts its launches in
 ``flash_attention_cuda.launches``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -29,14 +35,35 @@ from repro_torch.core.matrixization import SMEM_BYTES
 from repro_torch.kernels import cuda_build
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain",
-           "flash_attention", "HEAD_DIMS", "NEG"]
+           "flash_attention", "smem_bytes", "HEAD_DIMS", "NEG"]
 
 NEG = -1e30
 
 #: head widths the kernel is compiled for
 HEAD_DIMS = (8, 16, 64, 128)
-MAX_THREADS = 256
 MAX_GRID_Y = 65535
+# The kernel's shape (csrc/flash_attention.cu defines the same numbers):
+# THREADS threads (4 warps) own BLOCK_ROWS query rows; K and V stream in
+# tiles of KV_TILE rows (KV_TILE_NARROW for f32 at Dh = 128) through a ring
+# of STAGES shared-memory buffers, rows padded by PAD elements.
+THREADS = 128
+BLOCK_ROWS = 64
+STAGES = 2
+KV_TILE = 64
+KV_TILE_NARROW = 32
+PAD = {torch.float32: 4, torch.bfloat16: 8}
+
+
+def smem_bytes(dh: int, dtype: torch.dtype) -> int:
+    """Shared memory of one kernel block: the ring of K and V tiles (the k
+    extent of K padded to 16 in bf16) and, for f32 at Dh = 128, the Q
+    block; elsewhere Q is staged in the ring's last K buffer."""
+    f32 = dtype == torch.float32
+    bk = KV_TILE_NARROW if f32 and dh == 128 else KV_TILE
+    dk = dh if f32 else max(dh, 16)
+    ks, vs = dk + PAD[dtype], dh + PAD[dtype]
+    q_rows = BLOCK_ROWS if f32 and dh == 128 else 0
+    return (STAGES * bk * (ks + vs) + q_rows * ks) * (4 if f32 else 2)
 
 
 def _dense(q, k, v, causal: bool):
@@ -57,10 +84,6 @@ def flash_attention_plain(q, k, v, causal: bool = True) -> torch.Tensor:
     """The plain PyTorch version of :func:`flash_attention_cuda`: dense f32
     softmax attention, cast to ``q.dtype``."""
     return _dense(q, k, v, causal)[1].to(q.dtype)
-
-
-def _threads_per_row(dh: int) -> int:
-    return max(1, dh // 64)
 
 
 def flash_attention_cuda(q, k, v, *, block_q: int = 128, block_k: int = 128,
@@ -91,33 +114,25 @@ def flash_attention_cuda(q, k, v, *, block_q: int = 128, block_k: int = 128,
                          f"type, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("kernel inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("kernel inputs must start on a 16-byte boundary "
+                         "(its loads are 16-byte copies)")
     if dh not in HEAD_DIMS:
         raise ValueError(f"head dim {dh} not supported (kernel built for "
                          f"{HEAD_DIMS})")
-    g = _threads_per_row(dh)
-    threads = block_q * g
-    if threads > MAX_THREADS or (g > 1 and threads % 32):
-        raise ValueError(f"block_q={block_q} at Dh={dh} needs {threads} "
-                         f"threads (at most {MAX_THREADS}, a multiple of 32 "
-                         f"when a row spans {g} threads)")
     if b * h > MAX_GRID_Y:
         raise ValueError(f"B*H={b * h} exceeds the grid limit {MAX_GRID_Y}")
-    stride = dh + (g if g > 1 else 0)
-    smem = 4 * 2 * block_k * stride
+    smem = smem_bytes(dh, q.dtype)
     if smem > SMEM_BYTES:
-        raise ValueError(f"block_k={block_k} at Dh={dh} needs {smem} B of "
-                         f"shared memory (limit {SMEM_BYTES})")
+        raise ValueError(f"Dh={dh} needs {smem} B of shared memory (limit "
+                         f"{SMEM_BYTES})")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    fn = cuda_build.load("flash_attention").flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             int(q.dtype == torch.bfloat16), b * h, s, dh, block_q, block_k,
-             1.0 / math.sqrt(dh), int(causal),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), int(q.dtype == torch.bfloat16), b * h,
+                      s, dh, 1.0 / math.sqrt(dh), int(causal),
+                      torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
                            f"error {err}")
@@ -126,6 +141,16 @@ def flash_attention_cuda(q, k, v, *, block_q: int = 128, block_k: int = 128,
 
 
 flash_attention_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """The kernel library's C launcher, with its argument types set once."""
+    fn = cuda_build.load("flash_attention").flash_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -41,7 +41,7 @@ def cuda_backend_core(plan):
     """
     return functools.partial(stencil_matrixized, spec=plan.spec,
                              cover=plan.cover, block=plan.block,
-                             aux_cache={})
+                             aux_cache={}, plan_cache={})
 
 
 def cuda_sweep_core(plan, steps: int, *, scratch: str = "pingpong"):
@@ -61,7 +61,7 @@ def cuda_sweep_core(plan, steps: int, *, scratch: str = "pingpong"):
     return functools.partial(stencil_sweep_matrixized, spec=plan.spec,
                              steps=steps, cover=plan.cover, block=plan.block,
                              scratch=scratch, aux_boundary=plan.boundary,
-                             aux_cache={})
+                             aux_cache={}, plan_cache={})
 
 
 def _cached(cache: dict | None, key, build):
@@ -181,13 +181,16 @@ def stencil_matrixized(x: torch.Tensor, *, spec: StencilSpec,
                        block: tuple[int, ...] | None = None,
                        option: str = "parallel",
                        boundary: str = "valid",
-                       aux_cache: dict | None = None) -> torch.Tensor:
+                       aux_cache: dict | None = None,
+                       plan_cache: dict | None = None) -> torch.Tensor:
     """Stencil via the step kernel. Batch axes lead.
 
     ``boundary`` uses the shared halo layer: 'valid' (default) shrinks the
     spatial extent by ``spec.order`` per side; 'zero'/'periodic' pad first
     and preserve shape.  ``aux_cache``, when given, keeps the scenario
-    operands built for one input shape for the next call with it.
+    operands built for one input shape for the next call with it;
+    ``plan_cache`` keeps the kernel plan (and so its tap table) of each
+    tile and batch.
     """
     x = halo.pad_halo(x, spec.order, spec.ndim, boundary)
     nd, r = spec.ndim, spec.order
@@ -207,7 +210,9 @@ def stencil_matrixized(x: torch.Tensor, *, spec: StencilSpec,
                                                x.device))
 
     def call(xc, b):
-        plan = stencil_mxu.build_kernel_plan(spec, cover, block, batch=b)
+        plan = _cached(plan_cache, (block, b),
+                       lambda: stencil_mxu.build_kernel_plan(
+                           spec, cover, block, batch=b))
         return stencil_mxu.stencil_cuda_call(xc, plan, aux=aux)
 
     return _run_batched(x, spec, r, block, out_sizes, call)
@@ -221,7 +226,9 @@ def stencil_sweep_matrixized(x: torch.Tensor, *, spec: StencilSpec,
                              boundary: str = "valid",
                              scratch: str = "pingpong",
                              aux_boundary: str | None = None,
-                             aux_cache: dict | None = None) -> torch.Tensor:
+                             aux_cache: dict | None = None,
+                             plan_cache: dict | None = None
+                             ) -> torch.Tensor:
     """``steps`` stencil applications in ONE in-kernel temporally-blocked
     pass (paper §6 x §4.3).  Batch axes lead (folded into the kernel batch
     — one launch, one tap table).
@@ -236,7 +243,8 @@ def stencil_sweep_matrixized(x: torch.Tensor, *, spec: StencilSpec,
     field is extended to the deep-halo slab with ``aux_boundary`` (defaults
     to ``boundary``).  The zero-extended multi-step evolution is NOT
     per-step exact for scenario specs, so 'zero' at ``steps > 1`` is
-    rejected.  ``aux_cache`` as in :func:`stencil_matrixized`.
+    rejected.  ``aux_cache`` and ``plan_cache`` as in
+    :func:`stencil_matrixized`.
     """
     if steps < 1:
         raise ValueError("steps >= 1")
@@ -266,8 +274,10 @@ def stencil_sweep_matrixized(x: torch.Tensor, *, spec: StencilSpec,
                                               aux_boundary, x.device))
 
     def call(xc, b):
-        plan = stencil_mxu.build_sweep_kernel_plan(
-            spec, cover, block, steps, batch=b, scratch=scratch)
+        plan = _cached(plan_cache, (block, b),
+                       lambda: stencil_mxu.build_sweep_kernel_plan(
+                           spec, cover, block, steps, batch=b,
+                           scratch=scratch))
         return stencil_mxu.sweep_cuda_call(xc, plan, aux=aux)
 
     return _run_batched(x, spec, w, block, out_sizes, call)

@@ -17,8 +17,11 @@ gather band with the zero entries skipped — the arithmetic of the Pallas
 kernel's banded-Toeplitz contraction (the accumulated ``2r+n`` outer
 products of Eq. 12) without the Toeplitz operator's structural zeros —
 then the degenerate lines as point taps (§3.3), accumulated in f32.  The
-host-side plans flatten that into one tap list (:attr:`KernelPlan.taps`),
-which the kernels and the plain versions consume in the same order.
+host-side plans flatten that into one tap list in row order
+(:attr:`KernelPlan.taps`: grouped by the leading-axis offsets, sorted
+along the last axis), which the kernels and the plain versions consume in
+the same order.  Each plan's tap table is built on a device once
+(:func:`tap_table`) and reused by every launch.
 
 Routing: a wrapper given a CPU tensor runs its plain version (whole-tensor
 shifted adds, the same taps in the same order); given a CUDA tensor it
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -43,7 +47,7 @@ from repro_torch.kernels import cuda_build
 __all__ = ["KernelPlan", "build_kernel_plan", "stencil_cuda_call",
            "stencil_step_plain", "SweepKernelPlan",
            "build_sweep_kernel_plan", "sweep_cuda_call", "sweep_plain",
-           "SCRATCH_MODES", "MAX_BATCH"]
+           "tap_runs", "tap_table", "SCRATCH_MODES", "MAX_BATCH"]
 
 #: The batch rides the kernels' second grid dimension (at most 65535).
 MAX_BATCH = 65535
@@ -83,25 +87,42 @@ def _plan_lines(spec: StencilSpec, cover: LineCover):
 
 
 def _flat_taps(spec: StencilSpec, band_lines, point_taps) -> tuple[Tap, ...]:
-    """The kernels' tap list: lines grouped by axis (ascending, lines in
-    cover order within an axis — the reference's per-axis contraction
-    order), each band's non-zero entries in band order, then the point
-    taps.  Coefficients are rounded to f32 as the reference's f32
-    Toeplitz operators and point-tap scalars are."""
+    """The kernels' tap list in row order: every band's non-zero entries
+    and every point tap, grouped into rows — taps with the same offsets on
+    the leading axes, rows in ascending order of those offsets — and
+    sorted along the last axis within a row (a stable sort, so taps at
+    one offset keep their cover order).  The step kernel applies each row
+    as runs of consecutive taps held in registers; both kernels and both
+    plain versions sum in this order.  Coefficients are rounded to f32 as
+    the reference's f32 Toeplitz operators and point-tap scalars are."""
     taps: list[Tap] = []
-    for axis in sorted({a for a, _, _ in band_lines}):
-        for a, band, fixed in band_lines:
-            if a != axis:
+    for a, band, fixed in band_lines:
+        fixed_d = dict(fixed)
+        for s, c in enumerate(band):
+            if c == 0.0:
                 continue
-            fixed_d = dict(fixed)
-            for s, c in enumerate(band):
-                if c == 0.0:
-                    continue
-                offs = [fixed_d.get(d, 0) for d in range(spec.ndim)]
-                offs[axis] = s
-                taps.append((float(np.float32(c)), tuple(offs)))
+            offs = [fixed_d.get(d, 0) for d in range(spec.ndim)]
+            offs[a] = s
+            taps.append((float(np.float32(c)), tuple(offs)))
     taps.extend((float(np.float32(c)), tuple(g)) for c, g in point_taps)
-    return tuple(taps)
+    return tuple(sorted(taps, key=lambda t: (t[1][:-1], t[1][-1])))
+
+
+def tap_runs(taps: Sequence[Tap], max_run: int = mx.STEP_MAX_RUN):
+    """The step kernel's runs: maximal groups of consecutive taps (in
+    ``taps`` order) with the same leading offsets and last-axis offsets
+    that step by one, at most ``max_run`` long.  Returns ``(leading
+    offsets, first last-axis offset, coefficients)`` per run."""
+    runs: list[tuple[tuple[int, ...], int, list[float]]] = []
+    for c, g in taps:
+        if runs:
+            lead, start, coefs = runs[-1]
+            if lead == g[:-1] and start + len(coefs) == g[-1] \
+                    and len(coefs) < max_run:
+                coefs.append(c)
+                continue
+        runs.append((g[:-1], g[-1], [c]))
+    return [(lead, start, tuple(coefs)) for lead, start, coefs in runs]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,7 +143,7 @@ class KernelPlan:
     batch: int | None = None
     n_aux: int = 0
 
-    @property
+    @functools.cached_property
     def taps(self) -> tuple[Tap, ...]:
         return _flat_taps(self.spec, self.band_lines, self.point_taps)
 
@@ -166,7 +187,7 @@ class SweepKernelPlan:
     scratch: str = "pingpong"
     n_aux: int = 0
 
-    @property
+    @functools.cached_property
     def taps(self) -> tuple[Tap, ...]:
         return _flat_taps(self.spec, self.band_lines, self.point_taps)
 
@@ -237,17 +258,69 @@ def _as3(v: Sequence[int], fill: int) -> tuple[int, int, int]:
     return (fill,) * (3 - len(v)) + v
 
 
-def _packed_taps(taps: Sequence[Tap], slab: Sequence[int],
-                 device) -> torch.Tensor:
-    """The kernels' tap table: the f32 coefficients' bits, then each tap's
-    linear offset into the shared-memory slab of extents ``slab``."""
+def _slab_strides(slab: Sequence[int], pitch: int) -> tuple[int, int, int]:
+    """Strides (f32 words) of a slab of extents ``slab`` whose rows have
+    ``pitch`` words, as 3-D."""
     s = _as3(slab, 1)
-    strides = (s[1] * s[2], s[2], 1)
+    return (s[1] * pitch, pitch, 1)
+
+
+def _sweep_table(taps: Sequence[Tap], slab: Sequence[int]) -> np.ndarray:
+    """The sweep kernel's tap table: the f32 coefficients' bits, then each
+    tap's linear offset into the shared-memory slab of extents ``slab``."""
+    strides = _slab_strides(slab, int(slab[-1]))
     coef = np.array([c for c, _ in taps], np.float32)
     offs = np.array([sum(g * st for g, st in zip(_as3(o, 0), strides))
                      for _, o in taps], np.int32)
-    packed = np.concatenate([coef.view(np.int32), offs])
-    return torch.from_numpy(packed).to(device)
+    return np.concatenate([coef.view(np.int32), offs])
+
+
+def _step_table(taps: Sequence[Tap], block: Sequence[int],
+                halo_width: int) -> tuple[np.ndarray, int]:
+    """The step kernel's tap table and its run count: one 4-word header
+    per run (slab offset of its first tap at the kernel's row pitch,
+    width, index of its first coefficient, that offset modulo 4), then
+    the f32 coefficients' bits in run order."""
+    slab = [b + 2 * halo_width for b in block]
+    strides = _slab_strides(slab, mx.step_slab_pitch(tuple(block),
+                                                      halo_width))
+    runs = tap_runs(taps)
+    head, coefs = [], []
+    for lead, start, cs in runs:
+        off = sum(g * st for g, st in zip(_as3(lead + (start,), 0), strides))
+        head.append((off, len(cs), len(coefs), off % 4))
+        coefs.extend(cs)
+    return np.concatenate([np.array(head, np.int32).reshape(-1),
+                           np.array(coefs, np.float32).view(np.int32)]), \
+        len(runs)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_table(kind: str, taps: tuple[Tap, ...], block: tuple[int, ...],
+                  halo_width: int, device: torch.device):
+    """A kernel's tap table on ``device`` and its run count, built and
+    copied once per (kernel, taps, tile, halo, device) — that is, once per
+    plan and device — and reused by every later launch."""
+    if kind == "step":
+        table, n_runs = _step_table(taps, block, halo_width)
+    else:
+        table = _sweep_table(taps, [b + 2 * halo_width for b in block])
+        n_runs = 0
+    return torch.from_numpy(table).to(device), n_runs
+
+
+def tap_table(plan, device) -> tuple[torch.Tensor, int]:
+    """The tap table of ``plan``'s kernel (the step kernel for a
+    :class:`KernelPlan`, the sweep kernel for a
+    :class:`SweepKernelPlan`) on ``device``, with its run count (0 for
+    the sweep): the same tensor on every call for the same plan and
+    device."""
+    device = torch.device(device)
+    if isinstance(plan, SweepKernelPlan):
+        return _device_table("sweep", plan.taps, plan.block,
+                             plan.steps * plan.spec.order, device)
+    return _device_table("step", plan.taps, plan.block, plan.spec.order,
+                         device)
 
 
 def _check_cuda_operands(x: torch.Tensor, aux, batch: int) -> None:
@@ -272,10 +345,13 @@ _C_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
            ctypes.c_int, ctypes.c_int] + [ctypes.c_int] * 9
 
 
-def _launcher(name: str, symbol: str, extra_args: list):
+@functools.lru_cache(maxsize=None)
+def _launcher(name: str, symbol: str, n_extra: int):
+    """The kernel library's C launcher, with its argument types set once:
+    the common arguments, ``n_extra`` ints, the stream."""
     lib = cuda_build.load(name)
     fn = getattr(lib, symbol)
-    fn.argtypes = _C_ARGS + extra_args + [ctypes.c_void_p]
+    fn.argtypes = _C_ARGS + [ctypes.c_int] * n_extra + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -343,17 +419,24 @@ def stencil_cuda_call(x: torch.Tensor, plan: KernelPlan,
     _check_aux(aux, plan, out_shape, "output spatial shape")
     batch = plan.batch or 1
     _check_cuda_operands(x, aux, batch)
-    smem = mx.step_smem_bytes(plan.block, r)
+    table, n_runs = tap_table(plan, x.device)
+    smem = mx.step_smem_bytes(plan.block, r, table_words=table.numel())
     if smem > mx.SMEM_BYTES:
         raise ValueError(f"block {plan.block} at halo {r} needs {smem} B of "
                          f"shared memory (limit {mx.SMEM_BYTES})")
-    taps = plan.taps
-    table = _packed_taps(taps, [b + 2 * r for b in plan.block], x.device)
     out = torch.empty(tuple(x.shape[:x.ndim - plan.spec.ndim]) + out_shape,
                       dtype=x.dtype, device=x.device)
-    fn = _launcher("stencil_step", "stencil_step_launch", [])
-    _launch(fn, "stencil_step", x, out, aux, table, len(taps), batch,
-            out_shape, plan.block, _as3((r,) * plan.spec.ndim, 0))
+    # whole-chunk vector loads and stores need 16-byte aligned rows of
+    # STEP_V outputs; 16-byte slab copies need 16-byte aligned input rows
+    vec = int(out_shape[-1] % mx.STEP_V == 0
+              and plan.block[-1] % mx.STEP_V == 0
+              and all(t.data_ptr() % 16 == 0 for t in (out, *aux)))
+    aligned = int(x.shape[-1] % 4 == 0 and plan.block[-1] % 4 == 0
+                  and x.data_ptr() % 16 == 0)
+    fn = _launcher("stencil_step", "stencil_step_launch", 4)
+    _launch(fn, "stencil_step", x, out, aux, table, len(plan.taps), batch,
+            out_shape, plan.block, _as3((r,) * plan.spec.ndim, 0), n_runs,
+            mx.step_slab_pitch(plan.block, r), vec, aligned)
     stencil_cuda_call.launches += 1
     return out
 
@@ -413,14 +496,11 @@ def sweep_cuda_call(x: torch.Tensor, plan: SweepKernelPlan,
             f"the sweep kernel under scratch={plan.scratch!r} "
             f"({mx.sweep_smem_bytes(plan.block, steps, r, plan.scratch)} B "
             f"of shared memory, limit {mx.SMEM_BYTES})")
-    taps = plan.taps
-    table = _packed_taps(taps, [b + 2 * steps * r for b in plan.block],
-                         x.device)
+    table, _ = tap_table(plan, x.device)
     out = torch.empty(tuple(x.shape[:x.ndim - plan.spec.ndim]) + out_shape,
                       dtype=x.dtype, device=x.device)
-    fn = _launcher("stencil_sweep", "stencil_sweep_launch",
-                   [ctypes.c_int, ctypes.c_int])
-    _launch(fn, "stencil_sweep", x, out, aux, table, len(taps), batch,
+    fn = _launcher("stencil_sweep", "stencil_sweep_launch", 2)
+    _launch(fn, "stencil_sweep", x, out, aux, table, len(plan.taps), batch,
             out_shape, plan.block, _as3((r,) * plan.spec.ndim, 0), steps,
             int(plan.scratch == "single"))
     sweep_cuda_call.launches += 1

@@ -188,7 +188,7 @@ def test_sweep_residency_model_matches_kernel_source():
     assert mx.sweep_feasible((16, 16), 4, 2, "single")
     assert not mx.sweep_feasible((128, 128), 4, 2, "single")
     assert mx.sweep_smem_bytes((32, 128), 2, 1) == \
-        2 * mx.step_smem_bytes((32, 128), 2)
+        2 * mx.slab_bytes((32, 128), 2)
     for name in cuda_build.SOURCES:
         assert cuda_build.library_path(name).name.startswith(f"lib{name}-")
 
