@@ -14,24 +14,32 @@ Phases:
    register report is printed);
 3. hold each kernel against its plain PyTorch version on the card, at
    1000^2 and 90^3 (not tile multiples), f32 and bf16, constant and
-   varying+masked, unbatched and batch 3, both sweep scratch modes; and
-   the step kernel at tiles whose last extent is not a multiple of its 8
-   outputs per thread and on input rows that are not 16-byte aligned;
+   varying+masked, unbatched and batch 3, both sweep scratch modes, the
+   sweep both on a haloed input and in wrap mode (the unpadded periodic
+   state, its halo read through wrapped indices, ragged tiles masked in
+   the kernel); and the step kernel at tiles whose last extent is not a
+   multiple of its 8 outputs per thread and on input rows that are not
+   16-byte aligned;
 4. drive the port's main path — ``api.plan`` -> ``api.compile`` -> run,
    backends restricted to ``["cuda"]`` — on four full-size cells and check
    each against the port's gather oracle (``reference_evolve``) on the card
    at max|diff| <= 1e-4; the launch counters are zeroed just before and
    read just after, and both kernels must have launched;
 5. hold every distinct kernel configuration the main path launched
-   (kernel, spec, cover, tile, T, aux operands — read from each cell's
-   compiled engine) against its plain version at the path's shapes;
+   (kernel, spec, cover, tile, T, aux operands, input mode — read from
+   each cell's compiled engine) against its plain version at the path's
+   shapes;
 6. time each kernel with CUDA events at the path's shapes next to its
    roofline bound (data-sheet 3.35 TB/s and 67 TFLOP/s f32), its plain
-   version and one PyTorch library call (``F.conv2d`` with TF32 off); the
-   step kernel again on the star3d_r2 cell's step against ``F.conv3d``;
-   the sweep at the path's tile against a 128x128 tile, in turns;
+   version and one PyTorch library call (``F.conv2d`` with TF32 off, on
+   the haloed input); the step kernel again on the star3d_r2 cell's step
+   against ``F.conv3d``; the sweep at both of its main-path shapes (the
+   star2d_r2 chunk, and the varying+masked star2d_r1 chunk, which no one
+   library call computes), and at the path's tile against a 128x128 tile,
+   in turns;
 7. time each cell's warm run on the host clock and break one profiled
-   run's device time into the two kernels and everything else;
+   run's device time into the two kernels and everything else, with the
+   periodic-pad gathers counted: only the step kernel's chunks may pad;
 8. hold the LM kernels against their plain versions: the banded mixer
    (shared and depthwise band, W in {1, 2, 4}, T = 1539, D = 3237, batch 1
    and 4, f32 and bf16) and flash attention (causal and full, f32 and
@@ -50,7 +58,9 @@ Phases:
    version;
 
 then phase 6's timing for the two LM kernels (banded mixer at the
-prefill's and a decode step's shape, flash attention at (4, 25, 1536, 64)
+prefill's and a decode step's shape — the decode call also by its device
+time from the profiler, beside the events time of 20 back-to-back calls,
+which is the host's time per call — flash attention at (4, 25, 1536, 64)
 causal in f32 and in bf16; library yardsticks ``F.conv1d`` and SDPA;
 flash attention's bound at the tensor-core rate its arithmetic runs at,
 3xTF32 in f32 and bf16 in bf16) and phase 7's breakdown of one warm
@@ -225,6 +235,21 @@ def kernel_cases(device, cases=KERNEL_CASES):
                         yield (label, sm.sweep_cuda_call(x, plan, aux),
                                sm.sweep_plain(x, plan, aux),
                                KERNEL_TOL[dtype])
+                    # wrap mode: the unpadded periodic state, any extents
+                    x = seeded_normal(lead + tuple(out), seed + 400,
+                                      device).to(getattr(torch, dtype))
+                    for scratch in ("pingpong", "single"):
+                        plan = sm.build_sweep_kernel_plan(
+                            spec, cover, block, steps, batch=batch,
+                            scratch=scratch, wrap=True)
+                        aux = () if spec.is_constant_dense else seeded_aux(
+                            sm.sweep_aux_shape(out, plan), seed + 500,
+                            device)
+                        label = (f"sweep {name} {out} T={steps} {dtype} "
+                                 f"{scenario} batch={batch} {scratch} wrap")
+                        yield (label, sm.sweep_cuda_call(x, plan, aux),
+                               sm.sweep_plain(x, plan, aux),
+                               KERNEL_TOL[dtype])
 
 
 def step_edge_cases(device, cases=STEP_EDGE_CASES):
@@ -378,27 +403,31 @@ def path_launches(cell, run, device):
         spec, cover = e.plan.spec, e.plan.cover
         block = tuple(min(b, s) for b, s in zip(e.plan.block, grid))
         w = steps * spec.order
-        x = halo.pad_halo(seeded_normal(grid, 2000 + t, device), w,
-                          spec.ndim, "periodic")
-        x = ops._pad_to_multiple(x, block, w, spec.ndim)
+        state = seeded_normal(grid, 2000 + t, device)
+        # the haloed input: the step kernel's, and the library's yardstick
+        haloed = halo.pad_halo(state, w, spec.ndim, "periodic")
         if name == "stencil_sweep":
+            # the path's periodic sweep takes the unpadded state (wrap mode)
+            x, mode = state, "wrap mode"
             aux = ops._scenario_aux_sweep(spec, grid, w, block, "periodic",
                                           device)
             plan = sm.build_sweep_kernel_plan(spec, cover, block, steps,
-                                              scratch=e.scratch)
+                                              scratch=e.scratch, wrap=True)
             kernel, plain = sm.sweep_cuda_call, sm.sweep_plain
         else:
+            x = haloed = ops._pad_to_multiple(haloed, block, w, spec.ndim)
+            mode = "haloed"
             aux = ops._scenario_aux_single(spec, grid, block, device)
             plan = sm.build_kernel_plan(spec, cover, block)
             kernel, plain = sm.stencil_cuda_call, sm.stencil_step_plain
         yield dict(
             name=name, t=t, spec=spec, cover=cover, steps=steps, x=x,
-            aux=aux,
+            haloed=haloed, aux=aux, block=block,
             kernel=lambda x=x, plan=plan, aux=aux, k=kernel: k(x, plan, aux),
             plain=lambda x=x, plan=plan, aux=aux, f=plain: f(x, plan, aux),
             label=(f"{name} [{cell['label']}] chunk T={t}: "
                    f"{spec.describe()}, block {block}, {len(aux)} aux, "
-                   f"input {tuple(x.shape)}"))
+                   f"input {tuple(x.shape)} {mode}"))
 
 
 def check_path_kernels(device, main: dict, failures: list) -> None:
@@ -441,6 +470,28 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiled_device_ms(fn, kernel: str, reps: int = 20):
+    """Mean device time (ms) of one launch of the kernel whose name holds
+    ``kernel`` over ``reps`` calls of ``fn``, from ``torch.profiler``;
+    None when the profiler saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and kernel in ev.key:
+            total += ev.self_device_time_total / 1e3
+            count += ev.count
+    return total / count if count else None
+
+
 def bound(read_bytes: float, write_bytes: float, flops: float,
           rate: str = "f32"):
     """(least ms, what bounds it): the bytes over the HBM rate against the
@@ -462,8 +513,10 @@ def flash_flops(shape) -> float:
 def time_kernels(device, main: dict, failures: list) -> list[dict]:
     """Time the two kernels at the main path's shapes: the step kernel on
     the box2d_r1 cell's fused operator, the sweep kernel on the star2d_r2
-    cell's deepest chunk; then the step kernel a second time on the
-    star3d_r2 cell's step against ``F.conv3d`` (a logged line)."""
+    cell's deepest chunk; then (logged lines) the step kernel on the
+    star3d_r2 cell's step against ``F.conv3d`` and the sweep on the
+    varying+masked star2d_r1 cell's chunk, where no one library call
+    computes the same function."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import temporal
@@ -478,25 +531,31 @@ def time_kernels(device, main: dict, failures: list) -> list[dict]:
              "src/repro/kernels/stencil_mxu.py:456"),
             ("stencil_step", CELLS[2],
              "src/repro_torch/kernels/csrc/stencil_step.cu",
-             "src/repro/kernels/stencil_mxu.py:277")):
+             "src/repro/kernels/stencil_mxu.py:277"),
+            ("stencil_sweep", CELLS[3],
+             "src/repro_torch/kernels/csrc/stencil_sweep.cu",
+             "src/repro/kernels/stencil_mxu.py:456")):
         case = [c for c in path_launches(cell, main["runs"][cell["label"]],
                                          device) if c["name"] == name][-1]
         spec, steps, x = case["spec"], case["steps"], case["x"]
-        # the library yardstick: one convolution with the chunk's T-fused
-        # constant taps computes the same function
-        weight = torch.as_tensor(
-            temporal.fuse_steps(spec, steps).gather_coeffs,
-            dtype=torch.float32, device=device)[None, None]
         conv = F.conv2d if spec.ndim == 2 else F.conv3d
+        library = None
+        if spec.is_constant_dense:
+            # the library yardstick: one convolution with the chunk's
+            # T-fused constant taps over the haloed input computes the
+            # same function
+            weight = torch.as_tensor(
+                temporal.fuse_steps(spec, steps).gather_coeffs,
+                dtype=torch.float32, device=device)[None, None]
+            library = (lambda xh=case["haloed"], wt=weight, conv=conv:
+                       conv(xh[None, None], wt)[0, 0])
         row = _time_row(
             name, source, replaces, main["launches"][name], failures,
-            kernel=case["kernel"], plain=case["plain"],
-            library=lambda x=x, wt=weight, conv=conv: conv(
-                x[None, None], wt)[0, 0],
+            kernel=case["kernel"], plain=case["plain"], library=library,
             inputs=(x, *case["aux"]), flops_per_out=2 * spec.taps * steps,
             desc=case["label"], library_name=conv.__name__,
             library_reps=20 if spec.ndim == 2 else 3)
-        if cell is not CELLS[2]:
+        if cell is CELLS[0] or cell is CELLS[1]:
             rows.append(row)
         del case, x
     return rows
@@ -516,7 +575,7 @@ def compare_sweep_tiles(device, main: dict, failures: list) -> None:
             if c["name"] == "stencil_sweep"][-1]
     x, wide = case["x"], (128, 128)
     plan = sm.build_sweep_kernel_plan(case["spec"], case["cover"], wide,
-                                      case["steps"])
+                                      case["steps"], wrap=True)
     runs = {"path": case["kernel"],
             "wide": lambda: sm.sweep_cuda_call(x, plan)}
     err = (runs["wide"]() - runs["path"]()).abs().max().item()
@@ -542,10 +601,13 @@ def _time_row(name, source, replaces, launches, failures, *, kernel, plain,
     import torch
     got = kernel()
     want = plain()
-    lib = library()
+    lib = library() if library is not None else None
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    lib_err = (lib.float() - want.float()).abs().max().item()
+    if got.shape != want.shape:
+        err = float("inf")
+    lib_err = float("nan") if lib is None else \
+        (lib.float() - want.float()).abs().max().item()
     if tol is None:
         tol = KERNEL_TOL[str(got.dtype).removeprefix("torch.")]
     if not err <= tol:
@@ -554,14 +616,17 @@ def _time_row(name, source, replaces, launches, failures, *, kernel, plain,
     n_out = got.numel()
     ms = cuda_ms(kernel, reps=20)
     plain_ms = cuda_ms(plain, reps=5, warmup=1)
-    library_ms = cuda_ms(library, reps=library_reps, warmup=1)
+    library_ms = None if library is None else \
+        cuda_ms(library, reps=library_reps, warmup=1)
     bound_ms, bound_by = bound(
         sum(a.numel() * a.element_size() for a in inputs),
         n_out * got.element_size(), flops_per_out * n_out, rate)
+    lib_text = "no one library call" if library_ms is None else \
+        f"{library_name} {library_ms:.3f} ms (max|library-plain| " \
+        f"{lib_err:.2e})"
     log(f"  {desc}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"{library_name} {library_ms:.3f} ms (max|library-plain| "
-        f"{lib_err:.2e}), "
-        f"bound {bound_ms:.3f} ms by {bound_by}, max|kernel-plain| {err:.2e} "
+        f"{lib_text}, bound {bound_ms:.3f} ms by {bound_by} "
+        f"({bound_ms / ms:.1%} of it), max|kernel-plain| {err:.2e} "
         f"(tol {tol:g}){'' if err <= tol else '  FAIL'}")
     del got, want, lib
     return {"name": name, "route": "cuda", "source": source,
@@ -575,13 +640,25 @@ def _time_row(name, source, replaces, launches, failures, *, kernel, plain,
 # phase 7: where a whole cell's time goes
 # ---------------------------------------------------------------------------
 
-def cell_breakdown(device, main: dict) -> None:
+def expected_pad_gathers(run) -> int:
+    """Periodic-pad gathers a cell's run may launch: one ``index_select``
+    per spatial axis for every chunk the step kernel runs (the halo layer
+    pads its haloed input); the sweep kernel's chunks read the periodic
+    halo themselves and pad nothing."""
+    p = run.plan
+    return sum(p.spec.ndim for t in p.fuse_schedule
+               if not (t > 1 and p.fuse_strategy == "inkernel"))
+
+
+def cell_breakdown(device, main: dict, failures: list) -> None:
     """For each cell, a warm run of the compiled executable: its time on
     the host clock (median of 3, each ending in a synchronize), and from
     one profiled run the device time of the two kernels and of every other
-    device op (pads, copies).  The device's idle share is that
-    device time against the unprofiled warm run (the profiler slows the
-    host, so the profiled run's own wall time is longer)."""
+    device op (pads, copies), with the periodic-pad gathers counted (more
+    than :func:`expected_pad_gathers` fails the run).  The device's idle
+    share is that device time against the unprofiled warm run (the
+    profiler slows the host, so the profiled run's own wall time is
+    longer)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -606,6 +683,7 @@ def cell_breakdown(device, main: dict) -> None:
             prof_wall = (time.perf_counter() - t0) * 1e3
         groups = {"stencil_step": 0.0, "stencil_sweep": 0.0, "other": 0.0}
         others: dict[str, float] = {}
+        pads, pad_ms = 0, 0.0
         for ev in prof.key_averages():
             if ev.device_type != DeviceType.CUDA:
                 continue
@@ -615,6 +693,9 @@ def cell_breakdown(device, main: dict) -> None:
             groups[key] += ms
             if key == "other":
                 others[ev.key[:60]] = others.get(ev.key[:60], 0.0) + ms
+                if "gather" in ev.key.lower():
+                    pads += ev.count
+                    pad_ms += ms
         busy = sum(groups.values())
         if busy == 0.0:
             log(f"  {cell['label']}: warm run {wall:.3f} ms (host clock); "
@@ -622,12 +703,20 @@ def cell_breakdown(device, main: dict) -> None:
             continue
         top = "; ".join(f"{k} {v:.3f}" for k, v in sorted(
             others.items(), key=lambda kv: -kv[1])[:4])
+        allowed = expected_pad_gathers(run)
+        ok = pads <= allowed
         log(f"  {cell['label']}: warm run {wall:.3f} ms (host clock, "
             f"median of 3); profiled run {prof_wall:.3f} ms: step kernel "
             f"{groups['stencil_step']:.3f} ms, sweep kernel "
             f"{groups['stencil_sweep']:.3f} ms, other device ops "
-            f"{groups['other']:.3f} ms [{top}], device idle "
-            f"{max(0.0, 1 - busy / wall):.1%} of the warm run")
+            f"{groups['other']:.3f} ms [{top}], of which periodic-pad "
+            f"gathers (index_select) {pads} launches {pad_ms:.3f} ms "
+            f"(the step kernel's chunks allow {allowed}); device idle "
+            f"{max(0.0, 1 - busy / wall):.1%} of the warm run"
+            f"{'' if ok else '  FAIL'}")
+        if not ok:
+            failures.append(f"{cell['label']}: {pads} periodic-pad gathers, "
+                            f"{allowed} allowed")
         del x
 
 
@@ -717,7 +806,7 @@ def _recording_banded_configs(seen: set):
     from repro_torch.kernels import banded_mixer as bm
     from repro_torch.kernels import ops
 
-    def record(x, band, block_t=128, block_d=128):
+    def record(x, band, block_t=bm.BLOCK_T, block_d=bm.BLOCK_D):
         seen.add((tuple(x.shape), tuple(band.shape), x.dtype, block_t,
                   block_d))
         return bm.banded_mixer_cuda_call(x, band, block_t, block_d)
@@ -937,6 +1026,17 @@ def time_lm_kernels(device, lm: dict, flash_launches: int,
             library_name="F.conv1d(groups=D)")
         if label == "prefill":
             rows.append(row)
+        else:
+            dev = profiled_device_ms(
+                lambda x=x, band=band: bm.banded_mixer_cuda_call(x, band),
+                "banded_mixer_kernel")
+            log(f"  banded_mixer decode x{shape}: host time per call "
+                f"{row['ms'] * 1e3:.2f} us (CUDA events over 20 "
+                f"back-to-back calls: the launches are host-bound), device "
+                f"time per launch "
+                f"{'not measured' if dev is None else f'{dev * 1e3:.2f} us'}"
+                f" (torch.profiler, 20 calls), bound "
+                f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}")
     for dtype, rate in (("float32", "3xtf32"), ("bfloat16", "bf16")):
         q, k, v = (seeded_normal(FLASH_SHAPE, 9100 + i, device).to(
             getattr(torch, dtype)) for i in range(3))
@@ -1099,7 +1199,7 @@ def main() -> int:
     compare_sweep_tiles(device, main_run, failures)
 
     log("phase 7: whole cells, warm (host clock; device time by profiler)")
-    cell_breakdown(device, main_run)
+    cell_breakdown(device, main_run, failures)
 
     log("phase 8: the LM kernels against their plain versions")
     check_cases(device, failures, lm_kernel_cases(device))

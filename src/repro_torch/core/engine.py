@@ -190,7 +190,9 @@ def register_backend(name: str, builder: Callable, *,
     in-kernel temporal-blocking core; registering one makes the backend
     eligible for the planner's ``fuse_strategy="inkernel"`` candidates.
     ``opts`` carries the shared-memory ``scratch`` policy
-    (``temporal.SCRATCH_MODES``) — accept ``**opts`` so new options stay
+    (``temporal.SCRATCH_MODES``) and the core's ``boundary`` ('valid':
+    shrink by ``2 * steps * order``; 'periodic': keep the shape and read
+    the halo in the kernel) — accept ``**opts`` so new options stay
     backward-compatible.  ``smem_tiles=True`` marks kernels that keep the
     haloed tile in shared memory (fused operators are then gated by
     ``matrixization.step_smem_bytes``).
@@ -239,9 +241,11 @@ def _cuda_builder(plan: StencilPlan, **_opts) -> Callable:
 
 
 def _cuda_sweep_builder(plan: StencilPlan, steps: int, *,
-                        scratch: str = "pingpong", **_opts) -> Callable:
+                        scratch: str = "pingpong", boundary: str = "valid",
+                        **_opts) -> Callable:
     from repro_torch.kernels import ops as kops
-    return kops.cuda_sweep_core(plan, steps, scratch=scratch)
+    return kops.cuda_sweep_core(plan, steps, scratch=scratch,
+                                boundary=boundary)
 
 
 # separable factors the CONSTANT Toeplitz operator through its SVD and
@@ -305,9 +309,10 @@ class StencilEngine:
         # built-core caches: keys carry EVERY argument that changes the
         # built core beyond the engine's own frozen plan — fused_engine
         # keys the depth (the cover option is compatibility-checked and
-        # rebuilt on mismatch), inkernel_core keys (depth, scratch policy).
+        # rebuilt on mismatch), inkernel_core keys (depth, scratch policy,
+        # boundary).
         self._fused_engines: dict[int, "StencilEngine"] = {}
-        self._inkernel_cores: dict[tuple[int, str], Callable] = {}
+        self._inkernel_cores: dict[tuple[int, str, str], Callable] = {}
 
     @classmethod
     def from_execution_plan(cls, eplan, device="cuda") -> "StencilEngine":
@@ -540,18 +545,20 @@ class StencilEngine:
         """Whether this engine's backend registers an in-kernel sweep."""
         return get_backend(self.plan.backend).sweep_builder is not None
 
-    def inkernel_core(self, t: int, scratch: str | None = None
-                      ) -> Callable[[Tensor], Tensor]:
+    def inkernel_core(self, t: int, scratch: str | None = None,
+                      boundary: str = "valid") -> Callable[[Tensor], Tensor]:
         """The backend's t-step in-kernel temporal-blocking core (cached).
 
-        A valid-mode callable shrinking each spatial axis by ``2*t*order``
-        — the exact contract of the t-fused operator's core, so the halo
-        layer and the Dirichlet-0 strip splice drive either
-        interchangeably.  ``scratch`` overrides the engine's shared-memory
-        policy for this core; it is part of the cache key.
+        At ``boundary="valid"`` a callable shrinking each spatial axis by
+        ``2*t*order`` — the exact contract of the t-fused operator's core,
+        so the halo layer and the Dirichlet-0 strip splice drive either
+        interchangeably; at ``boundary="periodic"`` a shape-preserving
+        update whose kernel reads the periodic halo itself (no padded
+        copy).  ``scratch`` overrides the engine's shared-memory policy
+        for this core; both are part of the cache key.
         """
         scratch = temporal.check_scratch(scratch or self.scratch)
-        key = (t, scratch)
+        key = (t, scratch, halo.check_boundary(boundary))
         core = self._inkernel_cores.get(key)
         if core is None:
             be = get_backend(self.plan.backend)
@@ -559,7 +566,8 @@ class StencilEngine:
                 raise ValueError(
                     f"backend {self.plan.backend!r} registers no "
                     f"sweep_builder; fuse_strategy='inkernel' needs one")
-            core = be.sweep_builder(self.plan, t, scratch=scratch)
+            core = be.sweep_builder(self.plan, t, scratch=scratch,
+                                    boundary=boundary)
             self._inkernel_cores[key] = core
         return core
 
@@ -577,6 +585,9 @@ class StencilEngine:
         self._check_fusion_legal(t, strategy)
         if strategy == "inkernel":
             spec = self.plan.spec
+            if self.plan.boundary == "periodic":
+                # the sweep kernel reads the halo through wrapped indices
+                return self.inkernel_core(t, boundary="periodic")
             return halo.wrap_boundary(self.inkernel_core(t), t * spec.order,
                                       spec.ndim, self.plan.boundary)
         return self.fused_engine(t)._fn

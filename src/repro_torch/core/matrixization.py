@@ -52,15 +52,18 @@ __all__ = [
     "inkernel_flops",
     "inkernel_hbm_bytes",
     "block_hbm_bytes",
-    "slab_bytes",
     "step_slab_pitch",
     "step_smem_bytes",
+    "sweep_slab_pitch",
+    "sweep_items",
     "sweep_smem_bytes",
     "sweep_feasible",
     "SMEM_BYTES",
     "TILE_SMEM_BUDGET",
     "SWEEP_THREADS",
     "SINGLE_SLOTS",
+    "SWEEP_ITEM_ROWS",
+    "SWEEP_ITEM_CHUNKS",
     "STEP_THREADS",
     "STEP_V",
     "STEP_MAX_RUN",
@@ -86,18 +89,12 @@ def check_scratch(scratch: str) -> str:
 
 # Hopper residency constants (NVIDIA H100 data sheet and Hopper
 # architecture white paper): one thread block may claim at most 227 KB of
-# dynamic shared memory.  The sweep kernel runs SWEEP_THREADS threads a block and, under
-# scratch="single", parks at most SINGLE_SLOTS outputs per thread in
-# registers between a step's reads and its write-back.  The CUDA sources
-# (kernels/csrc/stencil_sweep.cu) define the same two numbers.  The kernel
-# wrappers gate on the hard launch limit SMEM_BYTES; the planner's block
-# search, its fused-operator and in-kernel candidates and the fuse-depth
-# chooser all gate on the one residency budget TILE_SMEM_BUDGET, so a plan
-# never picks a tile the kernels cannot launch, nor one that leaves a
-# single block on an SM.
+# dynamic shared memory.  The kernel wrappers gate on that hard launch
+# limit, SMEM_BYTES; the planner's block search, its fused-operator and
+# in-kernel candidates and the fuse-depth chooser all gate on the one
+# residency budget TILE_SMEM_BUDGET, so a plan never picks a tile the
+# kernels cannot launch, nor one that leaves a single block on an SM.
 SMEM_BYTES = 232448
-SWEEP_THREADS = 512
-SINGLE_SLOTS = 32
 
 # The step kernel (kernels/csrc/stencil_step.cu, which defines the same three
 # numbers) runs STEP_THREADS threads a block; each thread computes STEP_V
@@ -107,16 +104,22 @@ STEP_THREADS = 256
 STEP_V = 8
 STEP_MAX_RUN = 9
 
+# The sweep kernel (kernels/csrc/stencil_sweep.cu, which defines the same
+# numbers) runs SWEEP_THREADS threads a block and computes STEP_V outputs a
+# thread in runs of at most STEP_MAX_RUN taps, as the step kernel does.  Its
+# work item is one warp: SWEEP_ITEM_ROWS rows of SWEEP_ITEM_CHUNKS chunks of
+# STEP_V outputs; items are dealt to the block's warps in turn.  Under
+# scratch="single" a warp parks at most SINGLE_SLOTS items of a step in
+# registers between the step's reads and its write-back.
+SWEEP_THREADS = 256
+SWEEP_ITEM_ROWS = 8
+SWEEP_ITEM_CHUNKS = 4
+SINGLE_SLOTS = 6
+
 #: Shared memory a plan lets one block claim: an SM holds 228 KB, of which
 #: each resident block reserves 1 KB, so two blocks of this size share an
 #: SM and one block's loads overlap the other's arithmetic.
 TILE_SMEM_BUDGET = 233472 // 2 - 1024
-
-
-def slab_bytes(block: tuple[int, ...], halo_width: int) -> int:
-    """The f32 haloed slab of one tile of one state, unpadded (the sweep
-    kernel's buffer)."""
-    return 4 * int(np.prod([b + 2 * halo_width for b in block]))
 
 
 def step_slab_pitch(block: tuple[int, ...], halo_width: int) -> int:
@@ -147,15 +150,47 @@ def step_smem_bytes(block: tuple[int, ...], halo_width: int,
     return 4 * (slab + table_words)
 
 
+def sweep_slab_pitch(block: tuple[int, ...], steps: int, order: int) -> int:
+    """Row pitch (f32 words) of the sweep kernel's slab: the
+    ``steps*order``-haloed row, up to 3 words of lead (the kernel stores a
+    row so that its columns agree with the input's modulo 4, for 16-byte
+    copies), and the over-read of a step's last chunk (``STEP_V`` outputs
+    past the live row's last full chunk, the radius and a 16-byte load's
+    rounding), rounded up to 4 (mod 8) as :func:`step_slab_pitch` is."""
+    need = block[-1] + 2 * steps * order + 3 + STEP_V + 2
+    pitch = -(-need // 4) * 4
+    return pitch + 4 if pitch % 8 == 0 else pitch
+
+
+def sweep_items(block: tuple[int, ...], steps: int, order: int) -> int:
+    """Work items of the sweep kernel's first step (its widest live extent,
+    ``block + 2*(steps-1)*order``): planes of the leading axes x blocks of
+    ``SWEEP_ITEM_ROWS`` rows x groups of ``SWEEP_ITEM_CHUNKS`` chunks of
+    ``STEP_V`` outputs along the last axis."""
+    live = [b + 2 * (steps - 1) * order for b in block]
+    planes = int(np.prod(live[:-2]))
+    rows = -(-live[-2] // SWEEP_ITEM_ROWS) if len(live) > 1 else 1
+    chunks = -(-live[-1] // STEP_V)
+    return planes * rows * -(-chunks // SWEEP_ITEM_CHUNKS)
+
+
 def sweep_smem_bytes(block: tuple[int, ...], steps: int, order: int,
-                     scratch: str = "pingpong") -> int:
-    """Shared memory of one sweep-kernel block: the ``steps*order``-deep
-    f32 slab, twice for ``"pingpong"`` (the slab buffer is one of the
-    pair), once for ``"single"``."""
+                     scratch: str = "pingpong",
+                     table_words: int | None = None) -> int:
+    """Shared memory of one sweep-kernel block: the ``steps*order``-deep f32
+    slab at :func:`sweep_slab_pitch`, rounded up to 16 bytes, twice for
+    ``"pingpong"`` and once for ``"single"``, and the tap table of
+    ``table_words`` 32-bit words — by default its bound for a full
+    ``(2*order + 1)``-box of base taps, one 4-word run header and one
+    coefficient per tap."""
     if steps < 1:
         raise ValueError("steps >= 1")
     n_bufs = 1 if check_scratch(scratch) == "single" else 2
-    return n_bufs * slab_bytes(block, steps * order)
+    lead = int(np.prod([b + 2 * steps * order for b in block[:-1]]))
+    slab = -(-lead * sweep_slab_pitch(block, steps, order) // 4) * 4
+    if table_words is None:
+        table_words = 5 * (2 * order + 1) ** len(block)
+    return 4 * (n_bufs * slab + table_words)
 
 
 def sweep_feasible(block: tuple[int, ...], steps: int, order: int,
@@ -163,13 +198,15 @@ def sweep_feasible(block: tuple[int, ...], steps: int, order: int,
                    limit: int = SMEM_BYTES) -> bool:
     """Whether the sweep kernel can run this tile: its shared memory fits
     ``limit`` (the launch limit by default; plans pass
-    :data:`TILE_SMEM_BUDGET`), and under ``"single"`` the deepest
-    intermediate's outputs fit the block's register slots."""
+    :data:`TILE_SMEM_BUDGET`), and under ``"single"`` the widest
+    intermediate's items fit the warps' register slots
+    (``SWEEP_THREADS // 32 * SINGLE_SLOTS`` items; the last step stores to
+    device memory and parks nothing)."""
     if sweep_smem_bytes(block, steps, order, scratch) > limit:
         return False
-    if scratch == "single":
-        live = int(np.prod([b + 2 * (steps - 1) * order for b in block]))
-        return live <= SWEEP_THREADS * SINGLE_SLOTS
+    if scratch == "single" and steps > 1:
+        return sweep_items(block, steps, order) <= \
+            SWEEP_THREADS // 32 * SINGLE_SLOTS
     return True
 
 

@@ -1027,7 +1027,7 @@ def compile_plan(eplan: ExecutionPlan, *, device="cuda") -> CompiledStencil:
     for t in set(eplan.fuse_schedule):
         if t > 1:
             if strategy == "inkernel":
-                eng.inkernel_core(t)
+                eng._chunk_fn(t, strategy)
             else:
                 eng.fused_engine(t, option=eplan.option
                                  if t == eplan.fuse_depth else "auto")

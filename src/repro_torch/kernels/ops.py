@@ -44,23 +44,27 @@ def cuda_backend_core(plan):
                              aux_cache={}, plan_cache={})
 
 
-def cuda_sweep_core(plan, steps: int, *, scratch: str = "pingpong"):
-    """Valid-mode T-step core (the registry's ``sweep_builder`` contract).
+def cuda_sweep_core(plan, steps: int, *, scratch: str = "pingpong",
+                    boundary: str = "valid"):
+    """T-step core (the registry's ``sweep_builder`` contract).
 
     Advances ``steps`` applications of ``plan.spec`` per call via the
-    sweep kernel — shrinks each spatial axis by ``2 * steps * spec.order``,
-    exactly like the ``steps``-fused operator's core, so the halo layer
-    drives either.  ``scratch`` picks the shared-memory policy.
+    sweep kernel.  At ``boundary="valid"`` it shrinks each spatial axis by
+    ``2 * steps * spec.order``, exactly like the ``steps``-fused
+    operator's core, so the halo layer drives either; at
+    ``boundary="periodic"`` it keeps the shape, and the kernel reads the
+    periodic halo of the unpadded state itself.  ``scratch`` picks the
+    shared-memory policy.
 
-    The engine hands this core pre-padded tensors and drives it at
-    ``boundary="valid"``, so for varying/masked specs the TRUE boundary is
-    forwarded as ``aux_boundary`` — the coefficient field must be extended
-    into the halo ring the same way the state was.  As the step core does,
-    it builds those operands once per input shape and keeps them.
+    For varying/masked specs the TRUE boundary is forwarded as
+    ``aux_boundary`` — the coefficient field must be extended into the
+    halo ring the same way the state was.  As the step core does, it
+    builds those operands once per input shape and keeps them.
     """
     return functools.partial(stencil_sweep_matrixized, spec=plan.spec,
                              steps=steps, cover=plan.cover, block=plan.block,
-                             scratch=scratch, aux_boundary=plan.boundary,
+                             boundary=boundary, scratch=scratch,
+                             aux_boundary=plan.boundary,
                              aux_cache={}, plan_cache={})
 
 
@@ -157,20 +161,23 @@ def _default_block(spec: StencilSpec, out_sizes, halo_width: int,
                       batch=batch or 1)
 
 
-def _run_batched(x, spec, w, block, out_sizes, call):
-    """Fold the leading axes into the kernel batch, pad to tiles, run,
-    crop and restore the leading axes."""
+def _run_batched(x, spec, w, block, out_sizes, call, pad: bool = True):
+    """Fold the leading axes into the kernel batch, pad to tiles (unless
+    the kernel masks ragged tiles itself: ``pad=False``), run, crop and
+    restore the leading axes."""
     nd = spec.ndim
+
+    def tiled(xs):
+        return _pad_to_multiple(xs, block, w, nd) if pad else xs.contiguous()
+
     lead = tuple(x.shape[: x.ndim - nd])
     if not lead:
-        xs = _pad_to_multiple(x, block, w, nd)
-        out = call(xs, None)
+        out = call(tiled(x), None)
         return out[tuple(slice(0, s) for s in out_sizes)]
     batch = int(np.prod(lead))
     if batch == 0:
         return torch.zeros(lead + out_sizes, dtype=x.dtype, device=x.device)
-    xb = _pad_to_multiple(x.reshape((batch,) + tuple(x.shape[len(lead):])),
-                          block, w, nd)
+    xb = tiled(x.reshape((batch,) + tuple(x.shape[len(lead):])))
     out = _fold_call(xb, batch, _feasible_fold(batch), call)
     out = out[(slice(None),) + tuple(slice(0, s) for s in out_sizes)]
     return out.reshape(lead + out_sizes)
@@ -234,10 +241,12 @@ def stencil_sweep_matrixized(x: torch.Tensor, *, spec: StencilSpec,
     — one launch, one tap table).
 
     Boundary semantics mirror a ``steps``-fused operator: 'valid' shrinks
-    the spatial extent by ``steps * spec.order`` per side; 'zero'/'periodic'
-    pad the deep halo once and preserve shape ('zero' is the zero-EXTENDED
-    evolution — the engine splices per-step-exact strips on top).
-    ``scratch`` picks the shared-memory policy.
+    the spatial extent by ``steps * spec.order`` per side; 'zero' pads the
+    deep halo once and preserves shape (the zero-EXTENDED evolution — the
+    engine splices per-step-exact strips on top); 'periodic' preserves
+    shape and pads nothing: the kernel takes the unpadded state, reads its
+    halo through wrapped indices and masks the ragged tiles.  ``scratch``
+    picks the shared-memory policy.
 
     Varying/masked specs re-read their fields at every in-kernel step; the
     field is extended to the deep-halo slab with ``aux_boundary`` (defaults
@@ -256,8 +265,10 @@ def stencil_sweep_matrixized(x: torch.Tensor, *, spec: StencilSpec,
             "masked specs at boundary='zero' (fall back to depth 1)")
     nd = spec.ndim
     w = steps * spec.order
-    x = halo.pad_halo(x, w, nd, boundary)
-    out_sizes = tuple(int(x.shape[x.ndim - nd + a]) - 2 * w
+    wrap = halo.check_boundary(boundary) == "periodic"
+    if not wrap:
+        x = halo.pad_halo(x, w, nd, boundary)
+    out_sizes = tuple(int(x.shape[x.ndim - nd + a]) - (0 if wrap else 2 * w)
                       for a in range(nd))
     if any(s <= 0 for s in out_sizes):
         raise ValueError(f"input {tuple(x.shape)} too small for {steps} "
@@ -274,28 +285,31 @@ def stencil_sweep_matrixized(x: torch.Tensor, *, spec: StencilSpec,
                                               aux_boundary, x.device))
 
     def call(xc, b):
-        plan = _cached(plan_cache, (block, b),
+        plan = _cached(plan_cache, (block, b, wrap),
                        lambda: stencil_mxu.build_sweep_kernel_plan(
                            spec, cover, block, steps, batch=b,
-                           scratch=scratch))
+                           scratch=scratch, wrap=wrap))
         return stencil_mxu.sweep_cuda_call(xc, plan, aux=aux)
 
-    return _run_batched(x, spec, w, block, out_sizes, call)
+    return _run_batched(x, spec, w, block, out_sizes, call, pad=not wrap)
 
 
 # ---------------------------------------------------------------------------
 # Causal banded mixer (LM integration)
 # ---------------------------------------------------------------------------
 
-def banded_mix(x: torch.Tensor, band: torch.Tensor, block_t: int = 128,
-               block_d: int = 128) -> torch.Tensor:
+def banded_mix(x: torch.Tensor, band: torch.Tensor,
+               block_t: int = banded_mixer.BLOCK_T,
+               block_d: int = banded_mixer.BLOCK_D) -> torch.Tensor:
     """Causal banded mix: ``y[t] = sum_s band[s] * x[t-s]``, zero history.
 
     ``x``: (..., T, D); ``band``: (W,) shared or (W, D) depthwise.  The
-    leading axes fold into the kernel's batch (grid) dimension; the tile is
-    ``(min(block_t, T), min(block_d, D))`` and ragged T and D are masked in
-    the kernel, so nothing is padded.  A CPU tensor runs the plain version,
-    a CUDA tensor launches the kernel or raises.
+    leading axes fold into the kernel's batch (grid) dimension; the tile
+    is ``min(block_t, T)`` time steps a thread and ``block_d`` channels a
+    block (``banded_mixer.BLOCK_T`` x ``BLOCK_D`` by default, so a decode
+    call of T = W rows launches one thread per channel group); ragged T
+    and D are masked in the kernel, so nothing is padded.  A CPU tensor
+    runs the plain version, a CUDA tensor launches the kernel or raises.
 
     Forward only: the reference's ``custom_vjp`` (dx as flip-mix-flip
     through the same kernel, dband as an einsum) becomes a
@@ -306,9 +320,10 @@ def banded_mix(x: torch.Tensor, band: torch.Tensor, block_t: int = 128,
         raise ValueError(f"x must be (..., T, D), got {tuple(x.shape)}")
     t_len, d = x.shape[-2], x.shape[-1]
     xb = x.reshape((-1, t_len, d)).contiguous()
-    bt, bd = min(block_t, max(t_len, 1)), min(block_d, max(d, 1))
+    bt = min(block_t, max(t_len, 1))
     chunk = banded_mixer.MAX_BATCH
-    outs = [banded_mixer.banded_mixer_cuda_call(xb[i:i + chunk], band, bt, bd)
+    outs = [banded_mixer.banded_mixer_cuda_call(xb[i:i + chunk], band, bt,
+                                                block_d)
             for i in range(0, max(xb.shape[0], 1), chunk)]
     out = outs[0] if len(outs) == 1 else torch.cat(outs)
     return out.reshape(x.shape)

@@ -9,7 +9,8 @@ replace the JAX package's two Pallas TPU kernels:
   ``repro.kernels.stencil_mxu.stencil_pallas_call``);
 * :func:`sweep_cuda_call` — T base steps in one kernel with shared-memory
   intermediates, ``fuse_strategy="inkernel"`` (replaces
-  ``sweep_pallas_call``).
+  ``sweep_pallas_call``); in wrap mode it takes the unpadded periodic
+  state and reads the halo through wrapped indices.
 
 One CUDA block owns one output tile of one state and keeps the haloed slab
 in shared memory.  Every coefficient line of the cover is applied as its
@@ -20,8 +21,10 @@ then the degenerate lines as point taps (§3.3), accumulated in f32.  The
 host-side plans flatten that into one tap list in row order
 (:attr:`KernelPlan.taps`: grouped by the leading-axis offsets, sorted
 along the last axis), which the kernels and the plain versions consume in
-the same order.  Each plan's tap table is built on a device once
-(:func:`tap_table`) and reused by every launch.
+the same order; both kernels apply it as runs of consecutive taps along
+the last axis held in registers (:func:`tap_runs`).  Each plan's tap
+table is built on a device once (:func:`tap_table`) and reused by every
+launch.
 
 Routing: a wrapper given a CPU tensor runs its plain version (whole-tensor
 shifted adds, the same taps in the same order); given a CUDA tensor it
@@ -38,6 +41,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import halo
 from repro_torch.core import matrixization as mx
 from repro_torch.core.coefficient_lines import LineCover
 from repro_torch.core.matrixization import SCRATCH_MODES, check_scratch
@@ -47,6 +51,7 @@ from repro_torch.kernels import cuda_build
 __all__ = ["KernelPlan", "build_kernel_plan", "stencil_cuda_call",
            "stencil_step_plain", "SweepKernelPlan",
            "build_sweep_kernel_plan", "sweep_cuda_call", "sweep_plain",
+           "sweep_aux_shape",
            "tap_runs", "tap_table", "SCRATCH_MODES", "MAX_BATCH"]
 
 #: The batch rides the kernels' second grid dimension (at most 65535).
@@ -171,11 +176,14 @@ class SweepKernelPlan:
     so ``step_exts[s][a] = block[a] + 2*(steps-1-s)*r`` and
     ``step_exts[-1] == block``.  The same BASE taps apply at every step.
     ``batch`` follows :class:`KernelPlan`; ``scratch`` picks the
-    shared-memory policy (see :data:`SCRATCH_MODES`).  ``n_aux`` scenario
-    operands are SLAB-aligned f32 inputs (the haloed input's spatial
-    shape, no batch axis); step ``s`` scales by the sub-slice at offset
-    ``(s+1)*r``, so every intermediate is scaled/masked exactly as a
-    sequence of single steps would be.
+    shared-memory policy (see :data:`SCRATCH_MODES`).  ``wrap`` is the
+    input contract: False takes the ``steps*r``-haloed input (boundaries
+    'valid' and 'zero'), True the unpadded periodic state, whose halo the
+    kernel reads through wrapped indices (boundary 'periodic').  ``n_aux``
+    scenario operands are SLAB-aligned f32 inputs of
+    :func:`sweep_aux_shape` (no batch axis); step ``s`` scales by the
+    sub-slice at offset ``(s+1)*r``, so every intermediate is
+    scaled/masked exactly as a sequence of single steps would be.
     """
 
     spec: StencilSpec
@@ -186,6 +194,7 @@ class SweepKernelPlan:
     batch: int | None = None
     scratch: str = "pingpong"
     n_aux: int = 0
+    wrap: bool = False
 
     @functools.cached_property
     def taps(self) -> tuple[Tap, ...]:
@@ -202,7 +211,8 @@ class SweepKernelPlan:
 def build_sweep_kernel_plan(spec: StencilSpec, cover: LineCover,
                             block: tuple[int, ...],
                             steps: int, batch: int | None = None,
-                            scratch: str = "pingpong") -> SweepKernelPlan:
+                            scratch: str = "pingpong",
+                            wrap: bool = False) -> SweepKernelPlan:
     if len(block) != spec.ndim:
         raise ValueError(f"block rank {len(block)} != stencil ndim {spec.ndim}")
     if steps < 1:
@@ -215,7 +225,7 @@ def build_sweep_kernel_plan(spec: StencilSpec, cover: LineCover,
                            point_taps=point_taps,
                            batch=None if batch is None else int(batch),
                            scratch=check_scratch(scratch),
-                           n_aux=mx.n_aux_operands(spec))
+                           n_aux=mx.n_aux_operands(spec), wrap=bool(wrap))
 
 
 # ---------------------------------------------------------------------------
@@ -265,29 +275,17 @@ def _slab_strides(slab: Sequence[int], pitch: int) -> tuple[int, int, int]:
     return (s[1] * pitch, pitch, 1)
 
 
-def _sweep_table(taps: Sequence[Tap], slab: Sequence[int]) -> np.ndarray:
-    """The sweep kernel's tap table: the f32 coefficients' bits, then each
-    tap's linear offset into the shared-memory slab of extents ``slab``."""
-    strides = _slab_strides(slab, int(slab[-1]))
-    coef = np.array([c for c, _ in taps], np.float32)
-    offs = np.array([sum(g * st for g, st in zip(_as3(o, 0), strides))
-                     for _, o in taps], np.int32)
-    return np.concatenate([coef.view(np.int32), offs])
-
-
-def _step_table(taps: Sequence[Tap], block: Sequence[int],
-                halo_width: int) -> tuple[np.ndarray, int]:
-    """The step kernel's tap table and its run count: one 4-word header
-    per run (slab offset of its first tap at the kernel's row pitch,
-    width, index of its first coefficient, that offset modulo 4), then
-    the f32 coefficients' bits in run order."""
-    slab = [b + 2 * halo_width for b in block]
-    strides = _slab_strides(slab, mx.step_slab_pitch(tuple(block),
-                                                      halo_width))
+def _run_table(taps: Sequence[Tap], strides: Sequence[int],
+               origin: Sequence[int]) -> tuple[np.ndarray, int]:
+    """A tap table of runs and its run count: one 4-word header per run
+    (slab offset of its first tap relative to ``origin``, width, index of
+    its first coefficient, that offset modulo 4), then the f32
+    coefficients' bits in run order."""
     runs = tap_runs(taps)
     head, coefs = [], []
     for lead, start, cs in runs:
-        off = sum(g * st for g, st in zip(_as3(lead + (start,), 0), strides))
+        off = sum((g - o) * st for g, o, st in
+                  zip(_as3(lead + (start,), 0), origin, strides))
         head.append((off, len(cs), len(coefs), off % 4))
         coefs.extend(cs)
     return np.concatenate([np.array(head, np.int32).reshape(-1),
@@ -295,31 +293,50 @@ def _step_table(taps: Sequence[Tap], block: Sequence[int],
         len(runs)
 
 
+def _step_table(taps: Sequence[Tap], block: Sequence[int],
+                halo_width: int) -> tuple[np.ndarray, int]:
+    """The step kernel's tap table (:func:`_run_table`): offsets from the
+    slab origin, at the step kernel's row pitch."""
+    slab = [b + 2 * halo_width for b in block]
+    strides = _slab_strides(slab, mx.step_slab_pitch(tuple(block),
+                                                      halo_width))
+    return _run_table(taps, strides, (0, 0, 0))
+
+
+def _sweep_table(taps: Sequence[Tap], block: Sequence[int], steps: int,
+                 order: int) -> tuple[np.ndarray, int]:
+    """The sweep kernel's tap table (:func:`_run_table`): offsets from the
+    output's own slab position, at the sweep kernel's row pitch, so one
+    table serves every step of the shrinking live window."""
+    slab = [b + 2 * steps * order for b in block]
+    strides = _slab_strides(slab, mx.sweep_slab_pitch(tuple(block), steps,
+                                                       order))
+    return _run_table(taps, strides, _as3((order,) * len(block), 0))
+
+
 @functools.lru_cache(maxsize=256)
 def _device_table(kind: str, taps: tuple[Tap, ...], block: tuple[int, ...],
-                  halo_width: int, device: torch.device):
+                  order: int, steps: int, device: torch.device):
     """A kernel's tap table on ``device`` and its run count, built and
-    copied once per (kernel, taps, tile, halo, device) — that is, once per
-    plan and device — and reused by every later launch."""
+    copied once per (kernel, taps, tile, order, steps, device) — that is,
+    once per plan and device — and reused by every later launch."""
     if kind == "step":
-        table, n_runs = _step_table(taps, block, halo_width)
+        table, n_runs = _step_table(taps, block, order)
     else:
-        table = _sweep_table(taps, [b + 2 * halo_width for b in block])
-        n_runs = 0
+        table, n_runs = _sweep_table(taps, block, steps, order)
     return torch.from_numpy(table).to(device), n_runs
 
 
 def tap_table(plan, device) -> tuple[torch.Tensor, int]:
     """The tap table of ``plan``'s kernel (the step kernel for a
     :class:`KernelPlan`, the sweep kernel for a
-    :class:`SweepKernelPlan`) on ``device``, with its run count (0 for
-    the sweep): the same tensor on every call for the same plan and
-    device."""
+    :class:`SweepKernelPlan`) on ``device``, with its run count: the same
+    tensor on every call for the same plan and device."""
     device = torch.device(device)
     if isinstance(plan, SweepKernelPlan):
         return _device_table("sweep", plan.taps, plan.block,
-                             plan.steps * plan.spec.order, device)
-    return _device_table("step", plan.taps, plan.block, plan.spec.order,
+                             plan.spec.order, plan.steps, device)
+    return _device_table("step", plan.taps, plan.block, plan.spec.order, 1,
                          device)
 
 
@@ -448,16 +465,46 @@ stencil_cuda_call.launches = 0
 # Kernel 2: T base steps in one kernel (fuse_strategy="inkernel")
 # ---------------------------------------------------------------------------
 
+def sweep_aux_shape(out_shape: Sequence[int], plan: SweepKernelPlan
+                    ) -> tuple[int, ...]:
+    """Spatial shape of the sweep's slab-aligned aux operands for an output
+    of ``out_shape``: the output rounded up to whole tiles, plus the
+    ``steps*r`` halo per side."""
+    w = plan.steps * plan.spec.order
+    return tuple(-(-o // b) * b + 2 * w
+                 for o, b in zip(out_shape, plan.block))
+
+
+def _sweep_shapes(x: torch.Tensor, plan: SweepKernelPlan, aux):
+    """Validate a sweep's input and aux operands against the plan's input
+    contract; returns the spatial output shape."""
+    nd, w = plan.spec.ndim, plan.steps * plan.spec.order
+    if plan.wrap:
+        lead = 0 if plan.batch is None else 1
+        if x.ndim != nd + lead or (lead and x.shape[0] != plan.batch):
+            raise ValueError(f"wrap-mode sweep expects a ([{plan.batch}], "
+                             f"spatial...) state, got {tuple(x.shape)}")
+        out_shape = tuple(x.shape[lead:])
+        if any(s <= 0 for s in out_shape):
+            raise ValueError(f"empty state {tuple(x.shape)}")
+    else:
+        out_shape = _check_input(x, plan, w)
+    _check_aux(aux, plan, sweep_aux_shape(out_shape, plan),
+               "slab-aligned aux shape")
+    return out_shape
+
+
 def sweep_plain(x: torch.Tensor, plan: SweepKernelPlan,
                 aux: Sequence[torch.Tensor] = ()) -> torch.Tensor:
-    """The plain PyTorch version of :func:`sweep_cuda_call`: ``steps``
-    whole-tensor applications of the same taps, f32 intermediates, each
-    step scaled by the aux sub-slice at offset ``(s+1)*r``, one cast at
-    the end."""
+    """The plain PyTorch version of :func:`sweep_cuda_call`, on the same
+    input contract: in wrap mode it pads the periodic halo first.  Then
+    ``steps`` whole-tensor applications of the same taps, f32
+    intermediates, each step scaled by the aux sub-slice at offset
+    ``(s+1)*r``, one cast at the end."""
     r, steps = plan.spec.order, plan.steps
-    out_shape = _check_input(x, plan, steps * r)
-    slab_shape = tuple(x.shape[x.ndim - plan.spec.ndim:])
-    _check_aux(aux, plan, slab_shape, "haloed slab shape")
+    out_shape = _sweep_shapes(x, plan, aux)
+    if plan.wrap:
+        x = halo.pad_halo(x, steps * r, plan.spec.ndim, "periodic")
     taps = plan.taps
     cur = x.to(torch.float32)
     for s in range(steps):
@@ -471,13 +518,13 @@ def sweep_plain(x: torch.Tensor, plan: SweepKernelPlan,
 
 def sweep_cuda_call(x: torch.Tensor, plan: SweepKernelPlan,
                     aux: Sequence[torch.Tensor] = ()) -> torch.Tensor:
-    """Advance a haloed spatial tensor by ``plan.steps`` base steps in one
-    kernel.
+    """Advance a spatial tensor by ``plan.steps`` base steps in one kernel.
 
-    ``x``: ``([B,] S_0 + 2Tr, ...)`` haloed input, ``S_a`` multiples of
-    the block; returns ``([B,] S_0, ...)`` — the state after T valid-mode
-    applications.  ``aux``: ``plan.n_aux`` slab-aligned f32 operands with
-    ``x``'s spatial shape (no batch axis).
+    ``x``: with ``plan.wrap`` the unpadded periodic state ``([B,] S_0,
+    ...)``, any extents; else the haloed input ``([B,] S_0 + 2Tr, ...)``
+    with ``S_a`` multiples of the block.  Returns ``([B,] S_0, ...)`` —
+    the state after T valid-mode applications.  ``aux``: ``plan.n_aux``
+    slab-aligned f32 operands of :func:`sweep_aux_shape` (no batch axis).
 
     A CPU tensor runs :func:`sweep_plain`; a CUDA tensor launches
     ``csrc/stencil_sweep.cu`` or raises.
@@ -485,9 +532,7 @@ def sweep_cuda_call(x: torch.Tensor, plan: SweepKernelPlan,
     if x.device.type == "cpu":
         return sweep_plain(x, plan, aux)
     r, steps = plan.spec.order, plan.steps
-    out_shape = _check_input(x, plan, steps * r)
-    _check_aux(aux, plan, tuple(x.shape[x.ndim - plan.spec.ndim:]),
-               "haloed slab shape")
+    out_shape = _sweep_shapes(x, plan, aux)
     batch = plan.batch or 1
     _check_cuda_operands(x, aux, batch)
     if not mx.sweep_feasible(plan.block, steps, r, plan.scratch):
@@ -495,14 +540,25 @@ def sweep_cuda_call(x: torch.Tensor, plan: SweepKernelPlan,
             f"block {plan.block} at {steps} steps of order {r} does not fit "
             f"the sweep kernel under scratch={plan.scratch!r} "
             f"({mx.sweep_smem_bytes(plan.block, steps, r, plan.scratch)} B "
-            f"of shared memory, limit {mx.SMEM_BYTES})")
-    table, _ = tap_table(plan, x.device)
+            f"of shared memory, limit {mx.SMEM_BYTES}; "
+            f"{mx.sweep_items(plan.block, steps, r)} work items)")
+    table, n_runs = tap_table(plan, x.device)
     out = torch.empty(tuple(x.shape[:x.ndim - plan.spec.ndim]) + out_shape,
                       dtype=x.dtype, device=x.device)
-    fn = _launcher("stencil_sweep", "stencil_sweep_launch", 2)
+    w2 = steps * r
+    # 16-byte slab copies need 16-byte aligned input rows and tiles; the
+    # kernel then stores each slab row `lead` words in, so that its columns
+    # agree with the input's modulo 4
+    aligned = int(x.dtype == torch.float32 and x.shape[-1] % 4 == 0
+                  and plan.block[-1] % 4 == 0 and x.data_ptr() % 16 == 0)
+    lead = (-w2) % 4 if plan.wrap and aligned else 0
+    vec = int(out_shape[-1] % mx.STEP_V == 0
+              and plan.block[-1] % mx.STEP_V == 0 and out.data_ptr() % 16 == 0)
+    fn = _launcher("stencil_sweep", "stencil_sweep_launch", 8)
     _launch(fn, "stencil_sweep", x, out, aux, table, len(plan.taps), batch,
-            out_shape, plan.block, _as3((r,) * plan.spec.ndim, 0), steps,
-            int(plan.scratch == "single"))
+            out_shape, plan.block, _as3((r,) * plan.spec.ndim, 0), n_runs,
+            steps, int(plan.scratch == "single"), int(plan.wrap),
+            mx.sweep_slab_pitch(plan.block, steps, r), lead, vec, aligned)
     sweep_cuda_call.launches += 1
     return out
 

@@ -146,10 +146,11 @@ def test_tap_table_is_built_once_per_plan_and_device(monkeypatch):
     assert first.numel() == 4 * n_runs + len(plan.taps)
     sweep = sm.build_sweep_kernel_plan(plan.spec, plan_cover(plan), (8, 16),
                                        2)
-    s_first, _ = sm.tap_table(sweep, "cpu")
+    s_first, s_runs = sm.tap_table(sweep, "cpu")
     assert sm.tap_table(sweep, "cpu")[0] is s_first
-    assert s_first.numel() == 2 * len(sweep.taps)
-    assert len(built) == 1                  # the sweep has its own format
+    assert s_runs == n_runs                 # the same runs ...
+    assert s_first.numel() == 4 * s_runs + len(sweep.taps)
+    assert len(built) == 1                  # ... in the sweep's own frame
 
 
 def plan_cover(plan):

@@ -179,16 +179,38 @@ def test_wrappers_refuse_other_devices():
         sm.stencil_cuda_call(x, sm.build_kernel_plan(port, cover, (16, 16)))
 
 
+def _source_constant(src: str, name: str) -> int:
+    """The value of ``constexpr int <name> = <digits>;`` in a kernel
+    source; a missing definition fails naming the constant."""
+    m = re.search(rf"constexpr int {name} = (\d+);", src)
+    assert m is not None, f"{name} is not defined as a constexpr int"
+    return int(m.group(1))
+
+
 def test_sweep_residency_model_matches_kernel_source():
     """The planner's shared-memory model and the sweep kernel agree on the
-    threads per block and the register slots of scratch='single'."""
+    threads per block, the work item, the register slots of
+    scratch='single' and the shared memory the launcher allocates."""
     src = (cuda_build.CSRC / "stencil_sweep.cu").read_text()
-    assert int(re.search(r"kThreads = (\d+);", src).group(1)) == mx.SWEEP_THREADS
-    assert int(re.search(r"kSlots = (\d+);", src).group(1)) == mx.SINGLE_SLOTS
+    assert _source_constant(src, "kThreads") == mx.SWEEP_THREADS
+    assert _source_constant(src, "kSlots") == mx.SINGLE_SLOTS
+    assert _source_constant(src, "kV") == mx.STEP_V
+    assert _source_constant(src, "kMaxRun") == mx.STEP_MAX_RUN
+    assert _source_constant(src, "kTx") == mx.SWEEP_ITEM_CHUNKS
+    assert _source_constant(src, "kTy") == mx.SWEEP_ITEM_ROWS
     assert mx.sweep_feasible((16, 16), 4, 2, "single")
     assert not mx.sweep_feasible((128, 128), 4, 2, "single")
-    assert mx.sweep_smem_bytes((32, 128), 2, 1) == \
-        2 * mx.slab_bytes((32, 128), 2)
+    # the launcher's allocation and its pitch check, restated
+    assert "sizeof(float) * ((size_t)(kSingle ? 1 : 2) * g.slab_words + " \
+           "4 * n_runs + n_taps)" in src
+    assert "g.slab_words = (g.s0 * g.s1 * pitch + 3) / 4 * 4;" in src
+    assert "pitch % 8 != 4 || pitch < lead + g.s2 + kV + 2" in src
+    pitch = mx.sweep_slab_pitch((32, 128), 2, 1)
+    assert pitch % 8 == 4 and pitch >= 3 + (128 + 4) + mx.STEP_V + 2
+    words = -(-(32 + 4) * pitch // 4) * 4
+    assert mx.sweep_smem_bytes((32, 128), 2, 1) == 4 * (2 * words + 5 * 9)
+    assert mx.sweep_smem_bytes((32, 128), 2, 1, "single", 17) == \
+        4 * (words + 17)
     for name in cuda_build.SOURCES:
         assert cuda_build.library_path(name).name.startswith(f"lib{name}-")
 

@@ -77,7 +77,10 @@ def test_banded_mixer_wrapper_rejects_what_the_kernel_does_not_take():
     # a tensor neither on the CPU nor on a card: no silent plain fallback
     with pytest.raises(ValueError, match="device"):
         bm.banded_mixer_cuda_call(x.to("meta"), torch.zeros(3))
-    assert bm.smem_bytes(4, 128, 128) == 4 * (131 * 128 + 4 * 128)
+    # the streaming design keeps no slab in shared memory
+    assert bm.smem_bytes(4, bm.BLOCK_T, bm.BLOCK_D) == 0
+    src = (bm.cuda_build.CSRC / "banded_mixer.cu").read_text()
+    assert "__shared__" not in src and "<<<grid, threads, 0, stream>>>" in src
 
 
 @pytest.mark.parametrize("causal", [True, False])
