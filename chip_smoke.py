@@ -64,15 +64,49 @@ which is the host's time per call — flash attention at (4, 25, 1536, 64)
 causal in f32 and in bf16; library yardsticks ``F.conv1d`` and SDPA;
 flash attention's bound at the tensor-core rate its arithmetic runs at,
 3xTF32 in f32 and bf16 in bf16) and phase 7's breakdown of one warm
-prefill and decode step of the serve cell.
+prefill and decode step of the serve cell; then the stencil serving
+slice:
+
+11. ``StencilServer`` at full width: star2d_r2, 16 periodic steps, 32
+   f32 requests alternating 4096^2 and 2730^2 (numpy, seed 0), buckets of
+   up to 8, ``backends=["cuda"]``, in five passes — cold sync, warm sync,
+   warm async, warm async on requests already on the card, and the
+   background stepper with four submitter threads blocking in
+   ``results(timeout_s=)``.  Pass 1 against the gather oracle on the card
+   at 1e-4, passes 2-5 bit-identical to it; each state of the first of
+   each shape also in buckets of 1, 2 and 4; cold misses equal to the
+   distinct (shape, bucket) executables and no warm miss; launches of the
+   step and sweep kernels equal to what the settled plans imply (counters
+   zeroed before each pass); ``degraded == {}`` and no fault counted.
+   Prints the plan per bucket, the port's admission cap per PAPER_SUITE
+   cell, states/s, us/state, p50/p95 latency per pass, and a profiled warm async pass's device time (kernels, H2D, D2H,
+   other, idle share), for numpy and for device-resident requests;
+12. chaos on the card (box2d_r1 2048^2, 4 steps, buckets of up to 4, 12
+   requests): seeded dispatch/settle/compile faults recover bit-identical
+   to the fault-free sync server with ``retries == bucket_failures ==
+   fired()``, and the seeded server's own launches (counters zeroed just
+   before it) equal what its launched buckets' plans imply, settled or
+   failed at settle; persistent compile faults of the cuda backend
+   degrade the group to the eager ``torch`` backend, bit-identical to a
+   torch-pinned server;
+13. rollouts: a three-segment star2d_r2 program at 8192^2 (``source``,
+   ``nudge`` + emit, emit) compiled on the card, against a stepwise
+   oracle at 1e-4; killed during segment 1 and resumed from its
+   checkpoint (``keep_last=2``), bit-identical to the uninterrupted run;
+   checkpoint write and restore times; two 4096^2 rollouts through phase
+   11's server with their emits streamed, bit-identical to the compiled
+   program at batch 2.
 
 Any kernel-vs-plain error over its tolerance (phases 3, 5, 6, 8 and 10),
-any main-path cell off its oracle, or any serve check that fails (phases
-9 and 10) fails the run.
+any main-path cell off its oracle, or any serve, server, chaos or
+rollout check that fails (phases 9-13) fails the run.
 
 The last three lines are a JSON object ``{"kernels": [...]}`` (all four
-kernels), the card's ``name, power.limit`` and ``{"ok": true, "device":
-{...}}``.  Without a card, or without the
+kernels; ``launches`` is the count of each kernel's own path — phase 4
+for the step and sweep kernels — and the step and sweep rows give the
+counts of phases 4, 11, 12 (the seeded server) and 13 in
+``launches_by_path``), the card's ``name,
+power.limit`` and ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository's sources beside this file, it exits non-zero and prints no
 result.
 """
@@ -150,6 +184,13 @@ FLASH_CASES = ((128, 16), (128, 64), (1536, 16), (1536, 64), (40, 8),
                (40, 128), (1536, 8), (1536, 128))
 SERVE = dict(batch=4, prompt_len=1536, gen_len=32)
 CONSISTENCY = dict(batch=2, prompt_len=1040, split=1000, seed=2)
+
+# phases 11-13: the stencil serving slice (2730 is the CLI's second shape,
+# two thirds of 4096)
+SERVE_STENCIL = dict(cell="star2d_r2", steps=16, grids=(4096, 2730),
+                     requests=32, max_batch=8, submitters=4)
+CHAOS = dict(cell="box2d_r1", grid=2048, steps=4, max_batch=4, requests=12)
+ROLLOUT = dict(cell="star2d_r2", grid=8192, serve_grid=4096)
 
 
 def log(msg: str) -> None:
@@ -1147,6 +1188,526 @@ def serve_breakdown(device, lm: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases 11-13: the stencil serving slice (plan cache, server, chaos,
+# rollouts with checkpoints)
+# ---------------------------------------------------------------------------
+
+def _sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _stencil_counters():
+    from repro_torch.kernels import stencil_mxu as sm
+    return {"stencil_step": sm.stencil_cuda_call,
+            "stencil_sweep": sm.sweep_cuda_call}
+
+
+def _zero_counts() -> None:
+    for c in _stencil_counters().values():
+        c.launches = 0
+
+
+def _read_counts() -> dict:
+    return {k: c.launches for k, c in _stencil_counters().items()}
+
+
+def plan_launches(eplan) -> dict:
+    """Kernel launches one call of a compiled plan makes: a sweep launch
+    for every in-kernel chunk deeper than 1, a step launch for every
+    other chunk (the batch rides one launch)."""
+    sweep = sum(1 for t in eplan.fuse_schedule
+                if t > 1 and eplan.fuse_strategy == "inkernel")
+    return {"stencil_step": len(eplan.fuse_schedule) - sweep,
+            "stencil_sweep": sweep}
+
+
+def _entry_plans(entry) -> list:
+    """The ExecutionPlans one cache entry's call runs (one, or one per
+    segment of a rollout program)."""
+    return list(getattr(entry.plan, "segment_plans", [entry.plan]))
+
+
+def expected_launches(caches, calls_before: dict,
+                      counter: str = "calls") -> dict:
+    """Launches the calls of every cache entry since ``calls_before``
+    imply, from each entry's plan: its settled calls, or with
+    ``counter="dispatches"`` every launch that returned, settled or not."""
+    want = {"stencil_step": 0, "stencil_sweep": 0}
+    for cache in caches:
+        for key, entry in cache._entries.items():
+            n = getattr(entry, counter) - calls_before.get((id(cache), key), 0)
+            for p in _entry_plans(entry):
+                for k, v in plan_launches(p).items():
+                    want[k] += n * v
+    return want
+
+
+def _entry_calls(caches) -> dict:
+    return {(id(c), k): e.calls for c in caches for k, e in c._entries.items()}
+
+
+def _bucket_plans(server) -> list[str]:
+    rows = []
+    for key, entry in sorted(server.cache._entries.items(),
+                             key=lambda kv: (kv[0][2], kv[0][6])):
+        for p in _entry_plans(entry):
+            rows.append(f"{'x'.join(map(str, p.grid))} bucket {p.batch}: "
+                        f"strategy {p.fuse_strategy}, depth {p.fuse_depth} "
+                        f"(schedule {p.schedule_str()}), tile "
+                        f"{'x'.join(map(str, p.block))}, backend {p.backend}")
+    return rows
+
+
+def admission_caps(max_batch: int) -> dict:
+    """The port's admission cap (``max_profitable_batch`` from its Hopper
+    cost model, on the host) for every PAPER_SUITE cell, 16 periodic
+    steps, at the JAX package's model grids (256^2, 64^3) and at serving
+    grids of 2^24 points (4096^2, 256^3)."""
+    from repro_torch import api
+    caps = {}
+    for name, spec in api.PAPER_SUITE().items():
+        grids = ((256, 4096) if spec.ndim == 2 else (64, 256))
+        caps[name] = {
+            "x".join([str(g)] * spec.ndim): api.max_profitable_batch(
+                api.StencilProblem(spec, (g,) * spec.ndim,
+                                   boundary="periodic", steps=16), max_batch)
+            for g in grids}
+    return caps
+
+
+def _device_breakdown(prof, wall_ms: float) -> str:
+    """Device time of a profiled run: the two stencil kernels, host-to-
+    device and device-to-host copies, everything else; idle share against
+    ``wall_ms``."""
+    from torch.autograd import DeviceType
+    parts = {"kernels": 0.0, "H2D": 0.0, "D2H": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        name = ev.key.lower()
+        if "stencil_step_kernel" in name or "stencil_sweep_kernel" in name:
+            parts["kernels"] += ms
+        elif "memcpy" in name and "htod" in name:
+            parts["H2D"] += ms
+        elif "memcpy" in name and "dtoh" in name:
+            parts["D2H"] += ms
+        else:
+            parts["other"] += ms
+    busy = sum(parts.values())
+    if busy == 0.0:
+        return "the profiler saw no device time: breakdown not measured"
+    text = ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+    return (f"device {busy:.3f} ms = {text} ms; device idle "
+            f"{max(0.0, 1 - busy / wall_ms):.1%} of the {wall_ms:.1f} ms "
+            f"pass")
+
+
+def serve_stencil(device, failures: list) -> dict:
+    """Phase 11: ``StencilServer`` at full width — 32 f32 requests of
+    star2d_r2, alternating 4096^2 and 2730^2, 16 periodic steps, buckets
+    of up to 8, backends ``["cuda"]``; five passes (cold sync, warm sync,
+    warm async, warm async on device-resident requests, background
+    stepper with four submitter threads), each against pass 1 bit for
+    bit, pass 1 against the gather oracle on the card at 1e-4."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core.time_stepper import reference_evolve
+
+    cfg = SERVE_STENCIL
+    spec = api.PAPER_SUITE()[cfg["cell"]]
+    rng = np.random.default_rng(0)
+    states = [rng.standard_normal((g, g), dtype=np.float32)
+              for g in (cfg["grids"][i % 2] for i in range(cfg["requests"]))]
+    server = api.StencilServer(spec, cfg["steps"], boundary="periodic",
+                               max_batch=cfg["max_batch"],
+                               backends=["cuda"], devices=[device])
+    shapes = sorted({s.shape for s in states})
+    counts = {"stencil_step": 0, "stencil_sweep": 0}
+    passes = {}
+
+    def background(batch):
+        server.start()
+        got, errors = [None] * len(batch), []
+        per = len(batch) // cfg["submitters"]
+
+        def submitter(lo):
+            try:
+                tickets = [(i, server.submit(batch[i]))
+                           for i in range(lo, lo + per)]
+                for i, t in tickets:
+                    got[i] = server.results(t, timeout_s=300.0)
+            except Exception as e:
+                errors.append(e)
+
+        threads = [threading.Thread(target=submitter, args=(k * per,))
+                   for k in range(cfg["submitters"])]
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300.0)
+        finally:
+            server.stop()
+        if errors or any(t.is_alive() for t in threads):
+            raise RuntimeError(f"background pass failed: {errors}")
+        return got
+
+    def run_pass(name, batch, mode):
+        server.async_dispatch = mode != "sync"
+        server.reset_stats()
+        misses0 = server.cache.misses
+        calls0 = _entry_calls(server.caches)
+        _zero_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        outs = background(batch) if mode == "background" else \
+            server.serve(batch)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        launched = _read_counts()
+        want = expected_launches(server.caches, calls0)
+        for k in counts:
+            counts[k] += launched[k]
+        st = server.stats()
+        misses = server.cache.misses - misses0
+        n = len(batch)
+        log(f"  pass {name}: {n} states in {wall * 1e3:.1f} ms = "
+            f"{n / wall:.1f} states/s, {wall / n * 1e6:.0f} us/state; "
+            f"latency p50 {st['latency']['p50_s'] * 1e3:.1f} ms, p95 "
+            f"{st['latency']['p95_s'] * 1e3:.1f} ms; {st['batches']} "
+            f"buckets, cache misses {misses}; launches {launched} "
+            f"(plans imply {want})")
+        ok = launched == want and st["degraded"] == {} and not any(
+            v for k, v in st["faults"].items())
+        if not ok:
+            failures.append(f"stencil server pass {name}: launches "
+                            f"{launched} vs {want}, degraded "
+                            f"{st['degraded']}, faults {st['faults']}")
+        passes[name] = dict(wall_s=wall, misses=misses, stats=st)
+        return outs
+
+    first = run_pass("1 cold sync", states, "sync")
+    distinct = len(server.cache)
+    log(f"  cold pass: {passes['1 cold sync']['misses']} plan-cache misses "
+        f"for {distinct} distinct (shape, bucket) executables; admission "
+        f"caps {server.stats()['admission']}")
+    if passes["1 cold sync"]["misses"] != distinct:
+        failures.append("stencil server: cold misses != executables")
+    for row in _bucket_plans(server):
+        log(f"  plan {row}")
+    t0 = time.perf_counter()
+    caps = admission_caps(cfg["max_batch"])
+    log(f"  admission caps at max_batch {cfg['max_batch']} per PAPER_SUITE "
+        f"cell, 16 periodic steps (planner on the host, "
+        f"{time.perf_counter() - t0:.1f} s): {json.dumps(caps)}")
+    worst = 0.0
+    for x, y in zip(states, first):
+        want = reference_evolve(spec, torch.from_numpy(x).to(device),
+                                cfg["steps"], "periodic")
+        ok_shape = y.shape == want.shape and y.device.type == device.type
+        err = (y - want).abs().max().item() if ok_shape else float("inf")
+        worst = max(worst, err)
+        del want
+    finite = all(bool(torch.isfinite(y).all()) for y in first)
+    log(f"  pass 1 vs the gather oracle: max|diff| {worst:.3e} (tol "
+        f"{E2E_ATOL:g}), finite={finite}")
+    if not (worst <= E2E_ATOL and finite):
+        failures.append(f"stencil server vs oracle: {worst:.3e}")
+
+    def same_bits(name, outs):
+        same = all(torch.equal(a, b) for a, b in zip(outs, first))
+        log(f"  pass {name}: bit-identical to pass 1: {same}")
+        if not same:
+            failures.append(f"stencil server pass {name} differs from 1")
+
+    same_bits("2 warm sync", run_pass("2 warm sync", states, "sync"))
+    same_bits("3 warm async", run_pass("3 warm async", states, "async"))
+    on_card = [torch.from_numpy(s).to(device) for s in states]
+    same_bits("4 warm async, device-resident",
+              run_pass("4 warm async, device-resident", on_card, "async"))
+    # a state's result against its bucket: the first state of each shape
+    # alone and in buckets of 2 and 4 (which also warms those buckets for
+    # the background pass, whose buckets form as requests arrive)
+    for k in (1, 2, 4):
+        for shape in shapes:
+            idx = [i for i, s in enumerate(states) if s.shape == shape][:k]
+            outs = server.serve([states[i] for i in idx])
+            same = all(torch.equal(o, first[i]) for o, i in zip(outs, idx))
+            log(f"  {'x'.join(map(str, shape))} in a bucket of {k}: "
+                f"bit-identical to its bucket of {cfg['max_batch']}: {same}")
+            if not same:
+                failures.append(f"stencil server: result depends on the "
+                                f"bucket ({shape}, {k})")
+    same_bits("5 background, 4 submitters",
+              run_pass("5 background, 4 submitters", states, "background"))
+    for name, p in passes.items():
+        if name != "1 cold sync" and p["misses"]:
+            failures.append(f"stencil server pass {name}: {p['misses']} "
+                            f"misses on a warm pass")
+    if device.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        server.async_dispatch = True
+        for label, batch in (("numpy requests", states),
+                             ("device-resident requests", on_card)):
+            _sync(device)
+            t0 = time.perf_counter()
+            server.serve(batch)
+            _sync(device)
+            wall = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                server.serve(batch)
+                _sync(device)
+            log(f"  warm async pass, {label}: {_device_breakdown(prof, wall)}")
+    del on_card, first
+    return {"server": server, "launches": counts, "passes": passes}
+
+
+def chaos_on_card(device, failures: list) -> dict:
+    """Phase 12: the chaos gates at a real size — box2d_r1 at 2048^2, 4
+    steps, buckets of up to 4, 12 requests: seeded dispatch/settle/compile
+    faults under the retry rung against the fault-free sync server, and
+    persistent compile faults of the cuda backend degrading the group to
+    the eager ``torch`` backend against a torch-pinned server."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+
+    cfg = CHAOS
+    spec = api.PAPER_SUITE()[cfg["cell"]]
+    rng = np.random.default_rng(1)
+    g = cfg["grid"]
+    states = [rng.standard_normal((g, g), dtype=np.float32)
+              for _ in range(cfg["requests"])]
+    name = f"{g}x{g}"
+
+    def server(backends, **kw):
+        return api.StencilServer(spec, cfg["steps"], boundary="periodic",
+                                 max_batch=cfg["max_batch"],
+                                 backends=backends, devices=[device], **kw)
+
+    def quick():
+        return api.RestartPolicy(max_failures=8, backoff_s=0.005)
+
+    base = server(["cuda"], async_dispatch=False).serve(states)
+    srv = server(["cuda"], restart=quick(), fallback_after=None)
+    plan = (api.FaultPlan(seed=2)
+            .rule("serve.dispatch", rate=0.3)
+            .rule("serve.settle", rate=0.3)
+            .rule("cache.compile", rate=0.5, times=2))
+    _zero_counts()
+    with plan:
+        outs = srv.serve(states)
+    counts = _read_counts()
+    f = srv.stats()["faults"]
+    by_site = plan.stats()["by_site"]
+    same = all(torch.equal(a, b) for a, b in zip(outs, base))
+    ok = (same and plan.fired() > 0
+          and f["retries"] == f["bucket_failures"] == plan.fired())
+    log(f"  seeded faults: {plan.fired()} fired ({by_site}),"
+        f" bucket failures {f['bucket_failures']}, retries {f['retries']}; "
+        f"bit-identical to the fault-free sync server: {same}"
+        f"{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append("chaos on the card: seeded faults")
+    # every bucket that returned from its launch ran its plan's kernels:
+    # the settled ones, and those failed at settle by an injected fault
+    want = expected_launches(srv.caches, {}, counter="dispatches")
+    settled = sum(e.calls for c in srv.caches for e in c._entries.values())
+    launched = sum(e.dispatches for c in srv.caches
+                   for e in c._entries.values())
+    ok = (counts == want and sum(counts.values()) > 0
+          and launched == settled + by_site.get("serve.settle", 0))
+    log(f"  launches of the seeded server: {counts} (plans imply {want} "
+        f"over {launched} launched buckets = {settled} settled + "
+        f"{by_site.get('serve.settle', 0)} failed at settle)"
+        f"{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append(f"chaos launches {counts} vs {want}")
+    torch_base = server(["torch"], async_dispatch=False).serve(states)
+    srv = server(["cuda"], restart=quick(), fallback_after=2)
+    plan = api.FaultPlan(seed=0).rule("cache.compile", rate=1.0,
+                                      match={"backend": "cuda"})
+    _zero_counts()
+    with plan:
+        outs = srv.serve(states)
+    degraded_counts = _read_counts()
+    st = srv.stats()
+    same = all(torch.equal(a, b) for a, b in zip(outs, torch_base))
+    ok = (same and st["degraded"] == {name: ["torch"]}
+          and st["faults"]["fallbacks"] == 1)
+    log(f"  fallback rung: degraded {st['degraded']}, fallbacks "
+        f"{st['faults']['fallbacks']}, {plan.fired()} compile faults, "
+        f"kernel launches {degraded_counts}; bit-identical to the "
+        f"torch-pinned server: {same}{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append("chaos on the card: fallback rung")
+    return {"launches": counts}
+
+
+def rollouts(device, failures: list, server) -> dict:
+    """Phase 13: a three-segment rollout of star2d_r2 at 8192^2 compiled on
+    the card against a stepwise oracle (``reference_evolve`` per segment
+    plus the update) at 1e-4; killed during segment 1 and resumed from its
+    checkpoint, bit-identical to the uninterrupted run; two 4096^2
+    rollouts through phase 11's server, emits streamed."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.checkpoint.checkpointer import (restore_checkpoint,
+                                                     save_checkpoint)
+    from repro_torch.core.time_stepper import reference_evolve
+    from repro_torch.rollout import build_update
+
+    cfg = ROLLOUT
+    spec = api.PAPER_SUITE()[cfg["cell"]]
+    segs = [api.Segment(5, api.UpdateOp("source",
+                                        {"seed": 3, "scale": 0.01})),
+            api.Segment(5, api.UpdateOp("nudge", {"seed": 4, "gain": 0.1}),
+                        emit=True),
+            api.Segment(6, emit=True)]
+    g = cfg["grid"]
+    program = api.RolloutProgram(
+        api.StencilProblem(spec, (g, g), boundary="periodic", steps=1),
+        segs)
+    _zero_counts()
+    t0 = time.perf_counter()
+    compiled = api.compile_program(program, backends=["cuda"], device=device)
+    log(f"  {g}^2 program planned and compiled in "
+        f"{time.perf_counter() - t0:.2f} s:")
+    for line in compiled.plan.explain().splitlines():
+        log(f"    {line}")
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (g, g), dtype=np.float32)).to(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    clean = compiled.run(x)
+    _sync(device)
+    log(f"  run {(time.perf_counter() - t0) * 1e3:.1f} ms (first call)")
+    y, oracle = x, []
+    for i, seg in enumerate(segs):
+        y = reference_evolve(spec, y, seg.steps, "periodic")
+        if seg.update is not None:
+            y = build_update(seg.update, program.segment_problem(i))(y)
+        if seg.emit:
+            oracle.append(y)
+    errs = [(a - b).abs().max().item()
+            for a, b in zip([e for _, e in clean.emits] + [clean.final],
+                            oracle + [y])]
+    ok = max(errs) <= E2E_ATOL and [t for t, _ in clean.emits] == [10, 16]
+    log(f"  emits at {[t for t, _ in clean.emits]} and final vs the stepwise "
+        f"oracle: max|diff| {', '.join(f'{e:.3e}' for e in errs)} (tol "
+        f"{E2E_ATOL:g}){'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append(f"rollout vs oracle: {errs}")
+    del y, oracle
+
+    class Kill(RuntimeError):
+        pass
+
+    def kill(seg, attempt):
+        if seg == 1:
+            raise Kill("killed during segment 1")
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        try:
+            api.run_checkpointed(compiled, x, directory=d, keep_last=2,
+                                 fault_injector=kill)
+            failures.append("rollout: the injected kill did not fire")
+        except Kill:
+            pass
+        _sync(device)
+        t0 = time.perf_counter()
+        resumed = api.run_checkpointed(compiled, x, directory=d,
+                                       keep_last=2)
+        _sync(device)
+        t_resume = time.perf_counter() - t0
+        same = (torch.equal(resumed.final, clean.final) and all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(resumed.emits,
+                                                       clean.emits))
+            and resumed.attempts == (0, 1, 1))
+        log(f"  killed during segment 1, resumed from the segment-0 "
+            f"checkpoint: attempts {resumed.attempts}, bit-identical to the "
+            f"uninterrupted run: {same} ({t_resume:.2f} s to resume and "
+            f"finish, checkpoints included){'' if same else '  FAIL'}")
+        if not same:
+            failures.append("rollout kill/resume differs")
+        tree = {"state": clean.final,
+                "emits": {f"{t:08d}": a for t, a in clean.emits}}
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in [clean.final] + [a for _, a in clean.emits])
+        t0 = time.perf_counter()
+        save_checkpoint(d, 99, tree, extra={"probe": 1})
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, _ = restore_checkpoint(d, 99, tree, device=device)
+        _sync(device)
+        t_load = time.perf_counter() - t0
+        exact = torch.equal(back["state"], clean.final)
+        log(f"  checkpoint of {nbytes / 2**20:.0f} MiB (state + 2 emits): "
+            f"write {t_save:.2f} s, restore to the card {t_load:.2f} s "
+            f"(host clock, local disk), bit-exact {exact}")
+        if not exact:
+            failures.append("checkpoint round trip differs")
+        del back, tree
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del x, clean, resumed
+    # two 4096^2 rollouts through the phase 11 server
+    sg = cfg["serve_grid"]
+    rng = np.random.default_rng(6)
+    xs = [rng.standard_normal((sg, sg), dtype=np.float32) for _ in range(2)]
+    server.async_dispatch = True
+    calls0 = _entry_calls(server.caches)
+    tickets = [server.submit_rollout(s, segs) for s in xs]
+    streamed = {t: [] for t in tickets}
+    running = set(tickets)
+    while running:
+        server.step()
+        for t in sorted(running):
+            # a drained, finished rollout leaves the server
+            streamed[t] += server.rollout_results(t)
+            if server.rollout_done(t):
+                running.discard(t)
+    finals = server.flush()
+    counts = _read_counts()
+    # the segment runs above: the clean run (0, 1, 2), the killed run
+    # (0, then 1 before the kill) and the resumed one (1, 2); then the
+    # server's settled one-segment programs
+    want = expected_launches(server.caches, calls0)
+    for i, n in enumerate((2, 3, 2)):
+        for k, v in plan_launches(compiled.plan.segment_plans[i]).items():
+            want[k] += n * v
+    ref = api.compile_program(api.RolloutProgram(
+        api.StencilProblem(spec, (sg, sg), boundary="periodic", steps=1,
+                           batch=2), segs), backends=["cuda"],
+        device=device).run(torch.from_numpy(np.stack(xs)).to(device))
+    same = all(torch.equal(finals[t], ref.final[i])
+               and [s for s, _ in streamed[t]] == [10, 16]
+               and all(torch.equal(a, e[i]) for (_, a), (_, e)
+                       in zip(streamed[t], ref.emits))
+               for i, t in enumerate(tickets))
+    log(f"  two {sg}^2 rollouts through the server: emits streamed at "
+        f"{[[s for s, _ in streamed[t]] for t in tickets]}, bit-identical "
+        f"to the compiled program at batch 2: {same}"
+        f"{'' if same else '  FAIL'}")
+    if not same:
+        failures.append("rollouts through the server differ")
+    log(f"  launches over phase 13: {counts} (plans imply {want})")
+    if counts != want:
+        failures.append(f"rollout launches {counts} vs {want}")
+    return {"launches": counts}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1220,6 +1781,31 @@ def main() -> int:
     log("phase 7 (serve cell): one warm prefill and decode step, device "
         "time by profiler")
     serve_breakdown(device, lm)
+
+    t_serving = time.perf_counter()
+    log("phase 11: StencilServer at full width, star2d_r2 4096^2/2730^2, "
+        "32 requests, 16 steps, buckets of up to 8")
+    served = serve_stencil(device, failures)
+    log("phase 12: chaos on the card, box2d_r1 2048^2")
+    chaotic = chaos_on_card(device, failures)
+    log("phase 13: rollouts at full width, star2d_r2 8192^2, with "
+        "checkpoints; two 4096^2 rollouts through the server")
+    rolled = rollouts(device, failures, served["server"])
+    log(f"  phases 11-13 took {time.perf_counter() - t_serving:.1f} s")
+    for row in rows:
+        if row["name"] in main_run["launches"]:
+            by_path = {"main": main_run["launches"][row["name"]],
+                       "stencil_server": served["launches"][row["name"]],
+                       "chaos": chaotic["launches"][row["name"]],
+                       "rollouts": rolled["launches"][row["name"]]}
+            row["launches_by_path"] = by_path
+            # the server's plans run both kernels; the rollout's plans
+            # are in-kernel chunks only (phase 13 prints them)
+            if by_path["stencil_server"] <= 0 or (
+                    row["name"] == "stencil_sweep"
+                    and by_path["rollouts"] <= 0):
+                failures.append(f"the serving paths never launched the "
+                                f"{row['name']} kernel")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     if failures:

@@ -12,8 +12,9 @@ import torch
 
 from repro_torch.core import halo
 
-__all__ = ["EvolveResult", "boundary_step", "evolve", "evolve_fused",
-           "evolve_compiled", "reference_step", "reference_evolve"]
+__all__ = ["EvolveResult", "boundary_step", "evolve", "evolve_until",
+           "evolve_fused", "evolve_compiled", "reference_step",
+           "reference_evolve"]
 
 
 class EvolveResult(NamedTuple):
@@ -81,6 +82,27 @@ def evolve(step_fn: Callable, x: torch.Tensor, steps: int,
                    x.new_zeros((0,) + tuple(x.shape)))
         return result, stacked
     return result
+
+
+def evolve_until(step_fn: Callable, x: torch.Tensor, tol: float,
+                 max_steps: int) -> EvolveResult:
+    """Evolve until the per-step relative residual ``|b - a| / |a|`` drops
+    to ``tol`` or below, or ``max_steps`` steps ran.
+
+    The JAX package runs this as one ``lax.while_loop`` on the device;
+    here it is a host loop that reads each step's residual back to decide
+    whether to go on — one device synchronisation per step.  The result's
+    ``residual`` is the last step's (``inf`` when no step ran).
+    """
+    state = x
+    res = torch.tensor(float("inf"))
+    steps = 0
+    while steps < max_steps and float(res) > tol:
+        nxt = step_fn(state)
+        res = _residual(nxt, state)
+        state = nxt
+        steps += 1
+    return EvolveResult(state, steps, res)
 
 
 def evolve_fused(engine, x: torch.Tensor, steps: int,
