@@ -95,16 +95,31 @@ slice:
    checkpoint (``keep_last=2``), bit-identical to the uninterrupted run;
    checkpoint write and restore times; two 4096^2 rollouts through phase
    11's server with their emits streamed, bit-identical to the compiled
-   program at batch 2.
+   program at batch 2;
+14. the planner's calibration: ``api.calibrate(top_k=3, wall=True)`` on
+   the four phase 4 cells at full size, the planner free
+   (``backends=["cuda"]``): each measurement's modelled against counted
+   flops and bytes, its time (CUDA events) against the modelled chunk
+   time; the step and sweep kernels launched; the record's JSON round
+   trip; one candidate of the 4096^2 cell counted again with
+   ``device="cpu"`` and equal; each calibrated plan beside the
+   uncalibrated one, compiled, run and held against the oracle at 1e-4;
+   the pooled record through a file into ``plan_report``;
+15. the differentiable stencil ``ops.stencil_apply_vjp`` at box2d_r1
+   8192^2 f32 and star3d_r1 256^3, loss sum(cos(y)): one step launch for
+   the forward and one for the adjoint, the step kernel's plain version
+   never run; dx against plain autograd on the card at 1e-4, dC at 1e-4
+   x sum|g x| per tap; forward and backward ms.
 
 Any kernel-vs-plain error over its tolerance (phases 3, 5, 6, 8 and 10),
-any main-path cell off its oracle, or any serve, server, chaos or
-rollout check that fails (phases 9-13) fails the run.
+any main-path cell off its oracle, or any serve, server, chaos,
+rollout, calibration or gradient check that fails (phases 9-15) fails
+the run.
 
 The last three lines are a JSON object ``{"kernels": [...]}`` (all four
 kernels; ``launches`` is the count of each kernel's own path — phase 4
 for the step and sweep kernels — and the step and sweep rows give the
-counts of phases 4, 11, 12 (the seeded server) and 13 in
+counts of phases 4, 11, 12 (the seeded server), 13, 14 and 15 in
 ``launches_by_path``), the card's ``name,
 power.limit`` and ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository's sources beside this file, it exits non-zero and prints no
@@ -191,6 +206,14 @@ SERVE_STENCIL = dict(cell="star2d_r2", steps=16, grids=(4096, 2730),
                      requests=32, max_batch=8, submitters=4)
 CHAOS = dict(cell="box2d_r1", grid=2048, steps=4, max_batch=4, requests=12)
 ROLLOUT = dict(cell="star2d_r2", grid=8192, serve_grid=4096)
+
+# phase 14: candidates measured per main-path cell
+CALIBRATE_TOP_K = 3
+# phase 15: the differentiable stencil at full width; dC sums ~6.7e7
+# products a tap at 8192^2, so it is held to this share of sum|g x|
+VJP_CELLS = (dict(name="box2d_r1", grid=(8192, 8192)),
+             dict(name="star3d_r1", grid=(256, 256, 256)))
+VJP_DC_REL_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -1709,6 +1732,231 @@ def rollouts(device, failures: list, server) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 14: the planner's calibration on the card
+# ---------------------------------------------------------------------------
+
+def calibrate_cells(device, failures: list, cells=CELLS) -> dict:
+    """Phase 14: ``api.calibrate(top_k=3, wall=True)`` on every main-path
+    cell at full size, the planner free to choose (``backends=["cuda"]``);
+    each measurement beside its model; the record's JSON round trip; one
+    candidate of the varying+masked cell counted again on the CPU (the
+    counts must not depend on the device); the calibrated plan beside the
+    uncalibrated one, compiled, run and held against the oracle; and the
+    pooled record through a file into ``plan_report``.  Returns the
+    launches of the calibration runs."""
+    import tempfile
+    import torch
+    from repro_torch import api
+    from repro_torch.core.time_stepper import reference_evolve
+    from repro_torch.launch import plan_report
+    from repro_torch.launch.calibrate import factor_key
+
+    cal_cells = []
+    _zero_counts()                      # zeroed just before the path
+    for cell in cells:
+        problem = api.StencilProblem(cell_spec(cell), grid=cell["grid"],
+                                     boundary="periodic",
+                                     steps=cell["steps"])
+        t0 = time.perf_counter()
+        rec = api.calibrate(problem, top_k=CALIBRATE_TOP_K, wall=True,
+                            backends=["cuda"], device=device)
+        _sync(device)
+        cal_cells.append((cell, problem, rec))
+        log(f"  {cell['label']}: calibrated {len(rec.measurements)} "
+            f"candidates in {time.perf_counter() - t0:.2f} s; factors "
+            f"compute {rec.compute} traffic {rec.traffic}")
+        for m in rec.measurements:
+            c = api.candidate_cost(problem, m.depth, m.option, m.backend,
+                                   block=m.block, strategy=m.strategy)
+            chunk_ms = (max(c.t_compute, c.t_traffic) + c.t_launch) * 1e3
+            wall_ms = m.wall_s * 1e3
+            log(f"    {factor_key(m.backend, m.strategy)} "
+                f"T={m.depth} {m.option} block "
+                f"{'x'.join(map(str, m.block))}: flops modelled "
+                f"{m.modelled_flops:.4e} counted {m.measured_flops:.4e} "
+                f"(x{m.measured_flops / m.modelled_flops:.3f}), bytes "
+                f"modelled {m.modelled_bytes:.4e} counted "
+                f"{m.measured_bytes:.4e} "
+                f"(x{m.measured_bytes / m.modelled_bytes:.3f}); chunk "
+                f"{wall_ms:.3f} ms (CUDA events, median of 3) against "
+                f"{chunk_ms:.3f} ms modelled (x{wall_ms / chunk_ms:.2f})")
+        again = api.CalibrationRecord.from_json(rec.to_json())
+        if again != rec or again.to_json() != rec.to_json():
+            failures.append(f"calibration record JSON round trip: "
+                            f"{cell['label']}")
+        if not all(m.measured_flops > 0 and m.measured_bytes > 0
+                   and m.wall_s and m.wall_s > 0 for m in rec.measurements):
+            failures.append(f"calibration: {cell['label']}: a measurement "
+                            f"without counts or time")
+    counts = _read_counts()
+    log(f"  launches over the calibration runs: {counts}")
+    for name, n in counts.items():
+        if n <= 0:
+            failures.append(f"calibration never launched the {name} "
+                            f"kernel")
+
+    # the counts of one candidate do not depend on the device
+    cell, problem, rec = next(c for c in cal_cells if c[0]["scenario"])
+    m = rec.measurements[0]
+    t0 = time.perf_counter()
+    on_cpu = api.measure_candidate(problem, m.depth, m.option, m.backend,
+                                   m.block, strategy=m.strategy,
+                                   device="cpu")
+    same = (on_cpu.measured_flops == m.measured_flops
+            and on_cpu.measured_bytes == m.measured_bytes)
+    log(f"  {cell['label']} {m.backend}:{m.strategy} T={m.depth}: counted "
+        f"on the CPU flops {on_cpu.measured_flops:.6e} bytes "
+        f"{on_cpu.measured_bytes:.6e}, on the card {m.measured_flops:.6e} "
+        f"/ {m.measured_bytes:.6e} ({time.perf_counter() - t0:.1f} s)"
+        f"{'' if same else '  FAIL'}")
+    if not same:
+        failures.append("calibration counts differ between the card and "
+                        "the CPU")
+
+    # the calibrated plans run, and agree with the oracle
+    for i, (cell, problem, rec) in enumerate(cal_cells):
+        p0 = api.plan(problem, backends=["cuda"])
+        p1 = api.plan(problem, backends=["cuda"], calibration=rec)
+        log(f"  {cell['label']}: uncalibrated {p0.fuse_strategy} "
+            f"T={p0.fuse_depth} {p0.option} block "
+            f"{'x'.join(map(str, p0.block))} {p0.chosen().t_per_step:.3e} "
+            f"s/step; calibrated {p1.fuse_strategy} T={p1.fuse_depth} "
+            f"{p1.option} block {'x'.join(map(str, p1.block))} "
+            f"{p1.chosen().t_per_step:.3e} s/step")
+        x = seeded_normal(cell["grid"], 4000 + i, device)
+        y = api.compile(p1, device=device)(x)
+        want = reference_evolve(problem.spec, x, cell["steps"], "periodic")
+        err = (y - want).abs().max().item()
+        ok = err <= E2E_ATOL and bool(torch.isfinite(y).all()) \
+            and y.shape == x.shape
+        log(f"    calibrated plan: max|port-oracle| {err:.3e} (tol "
+            f"{E2E_ATOL:g}){'' if ok else '  FAIL'}")
+        if not ok:
+            failures.append(f"calibrated plan: {cell['label']}: {err:.3e}")
+        del x, y, want
+
+    # the pooled record, through a file, re-ranks the plan report
+    pooled = api.CalibrationRecord.from_measurements(
+        cal_cells[0][2].hw, {"cells": [c["label"] for c, _, _ in cal_cells]},
+        [m for _, _, rec in cal_cells for m in rec.measurements])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "calibration.json"
+        path.write_text(pooled.to_json(indent=1))
+        loaded = api.CalibrationRecord.from_json(path.read_text())
+    report = plan_report.generate_report(calibration=loaded)
+    plain_report = plan_report.generate_report()
+    chosen = [ln for ln in report.splitlines() if ln.startswith("chosen")]
+    was = [ln for ln in plain_report.splitlines() if ln.startswith("chosen")]
+    ok = (loaded == pooled and len(chosen) == 13
+          and report.count("calibrated (") == 13)
+    log(f"  pooled record: compute {pooled.compute} traffic "
+        f"{pooled.traffic}; plan report re-ranked with it: "
+        f"{sum(a != b for a, b in zip(chosen, was))} of 13 choices moved"
+        f"{'' if ok else '  FAIL'}")
+    for a, b in zip(chosen, was):
+        if a != b:
+            log(f"    {b} -> {a}")
+    if not ok:
+        failures.append("plan report with the pooled calibration record")
+    return {"launches": counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the differentiable stencil at full width
+# ---------------------------------------------------------------------------
+
+def _manual_loss_grads(x, c):
+    """dx and dC of sum(cos(valid stencil)) through plain autograd: the
+    stencil as a sum of shifted windows (the reference test's manual
+    loss), on the tensors' device."""
+    import numpy as np
+    import torch
+    xr = x.detach().clone().requires_grad_()
+    cr = c.detach().clone().requires_grad_()
+    out = [n - (c.shape[0] - 1) for n in x.shape]
+    acc = None
+    for off in np.ndindex(*c.shape):
+        win = xr[tuple(slice(o, o + n) for o, n in zip(off, out))]
+        acc = cr[off] * win if acc is None else acc + cr[off] * win
+    torch.cos(acc).sum().backward()
+    return xr.grad, cr.grad
+
+
+def stencil_vjp_on_card(device, failures: list) -> dict:
+    """Phase 15: ``ops.stencil_apply_vjp`` at full width, loss sum(cos(y)):
+    the step kernel must launch for the forward and for the adjoint, the
+    step kernel's plain version never; dx against plain autograd on the
+    card at 1e-4, dC at 1e-4 x sum|g x| per tap; forward and backward ms
+    by CUDA events."""
+    import numpy as np
+    import torch
+    from repro_torch.core import stencil_spec as ss
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_mxu as sm
+
+    plain_calls = []
+    real_plain = sm.stencil_step_plain
+
+    def counting_plain(*args, **kwargs):
+        plain_calls.append(1)
+        return real_plain(*args, **kwargs)
+
+    total = 0
+    sm.stencil_step_plain = counting_plain
+    try:
+        for i, cell in enumerate(VJP_CELLS):
+            spec = ss.PAPER_SUITE()[cell["name"]]
+            x = seeded_normal(cell["grid"], 3000 + i, device)
+            c = torch.tensor(np.asarray(spec.gather_coeffs, np.float32),
+                             device=device)
+            xg, cg = x.clone().requires_grad_(), c.clone().requires_grad_()
+            _zero_counts()              # zeroed just before the path
+            y = ops.stencil_apply_vjp(xg, cg)
+            fwd = sm.stencil_cuda_call.launches
+            torch.cos(y).sum().backward()
+            _sync(device)
+            bwd = sm.stencil_cuda_call.launches - fwd
+            total += fwd + bwd
+            rx, rc = _manual_loss_grads(x, c)
+            g = -torch.sin(y.detach())
+            bars = torch.stack([
+                (g * x[tuple(slice(o, o + n) for o, n in
+                             zip(off, g.shape))]).abs().sum()
+                for off in np.ndindex(*c.shape)]).reshape(c.shape) \
+                * VJP_DC_REL_TOL
+            dx_err = (xg.grad - rx).abs().max().item()
+            dc_err = (cg.grad - rc).abs()
+            dc_ok = bool((dc_err <= bars).all())
+            ok = (fwd == 1 and bwd == 1 and dx_err <= E2E_ATOL and dc_ok
+                  and bool(torch.isfinite(xg.grad).all()))
+            # times: the forward, and the backward alone on a kept graph
+            fwd_ms = cuda_ms(lambda: ops.stencil_apply_vjp(x, c), reps=5)
+            xk, ck = x.clone().requires_grad_(), c.clone().requires_grad_()
+            yk = ops.stencil_apply_vjp(xk, ck)
+            bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                yk, (xk, ck), g, retain_graph=True), reps=5)
+            log(f"  {cell['name']} {'x'.join(map(str, cell['grid']))} f32: "
+                f"step launches forward {fwd}, backward {bwd}; "
+                f"max|dx - plain| {dx_err:.3e} (tol {E2E_ATOL:g}); "
+                f"max|dC - plain| {dc_err.max().item():.3e} against "
+                f"per-tap bars {bars.min().item():.3e}..."
+                f"{bars.max().item():.3e} ({VJP_DC_REL_TOL:g} x sum|g x|); "
+                f"forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms "
+                f"(CUDA events, 5 calls){'' if ok else '  FAIL'}")
+            if not ok:
+                failures.append(f"stencil_apply_vjp: {cell['name']}: dx "
+                                f"{dx_err:.3e}, dC within bars {dc_ok}, "
+                                f"launches {fwd}/{bwd}")
+            del x, y, xg, cg, rx, rc, g, xk, yk
+    finally:
+        sm.stencil_step_plain = real_plain
+    if plain_calls:
+        failures.append(f"the step kernel's plain version ran "
+                        f"{len(plain_calls)} times on the card path")
+    return {"launches": {"stencil_step": total, "stencil_sweep": 0}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1792,12 +2040,22 @@ def main() -> int:
         "checkpoints; two 4096^2 rollouts through the server")
     rolled = rollouts(device, failures, served["server"])
     log(f"  phases 11-13 took {time.perf_counter() - t_serving:.1f} s")
+    t_planner = time.perf_counter()
+    log("phase 14: the planner's calibration on the card, the four "
+        "main-path cells at full size")
+    calibrated = calibrate_cells(device, failures)
+    log("phase 15: the differentiable stencil at full width, box2d_r1 "
+        "8192^2 and star3d_r1 256^3")
+    vjp = stencil_vjp_on_card(device, failures)
+    log(f"  phases 14-15 took {time.perf_counter() - t_planner:.1f} s")
     for row in rows:
         if row["name"] in main_run["launches"]:
             by_path = {"main": main_run["launches"][row["name"]],
                        "stencil_server": served["launches"][row["name"]],
                        "chaos": chaotic["launches"][row["name"]],
-                       "rollouts": rolled["launches"][row["name"]]}
+                       "rollouts": rolled["launches"][row["name"]],
+                       "calibrate": calibrated["launches"][row["name"]],
+                       "stencil_vjp": vjp["launches"][row["name"]]}
             row["launches_by_path"] = by_path
             # the server's plans run both kernels; the rollout's plans
             # are in-kernel chunks only (phase 13 prints them)

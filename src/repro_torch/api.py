@@ -17,6 +17,11 @@ problem or plan of the JAX package carries across with identical numbers:
 ``ExecutionPlan.from_json(ref_plan.to_json())`` (backend names mapped by
 ``REFERENCE_BACKENDS``).
 
+``api.calibrate(problem, ...)`` measures a problem's top candidates
+(counted flops and bytes of each executed chunk, optionally its time) into
+a :class:`CalibrationRecord`; ``api.plan(problem, calibration=record)``
+re-ranks with it.  Records cross between the packages in both directions.
+
 Serving and rollouts sit on top: a :class:`PlanCache` memoizes plan +
 compile per problem, a :class:`StencilServer` batches a request stream
 into cached executables on the card, :class:`RolloutProgram` s
@@ -47,6 +52,9 @@ from repro_torch.core.stencil_spec import (PAPER_SUITE, StencilSpec, box,
                                            diagonal, from_gather_coeffs,
                                            from_numpy, random_coeff_field,
                                            random_domain_mask, star)
+from repro_torch.launch.calibrate import (CalibrationRecord,
+                                          CandidateMeasurement, calibrate,
+                                          measure_candidate)
 from repro_torch.launch.serve_stencil import (RequestShed, ServeStats,
                                               StencilServer)
 from repro_torch.rollout import (CompiledRollout, RolloutPlan, RolloutProgram,
@@ -69,6 +77,8 @@ __all__ = [
     "best_block", "batch_cost_curve", "max_profitable_batch",
     "serving_buckets", "FUSE_STRATEGIES", "PLAN_VERSION",
     "REFERENCE_BACKENDS",
+    "CalibrationRecord", "CandidateMeasurement", "calibrate",
+    "measure_candidate",
     "PlanCache", "CachedExecutable", "cache_key",
     "StencilServer", "ServeStats", "RequestShed",
     "FaultPlan", "FaultRule", "FaultError", "FAULT_SITES",

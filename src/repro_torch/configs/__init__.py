@@ -1,1 +1,2 @@
-"""Model configurations of the port (the LM slice: Hymba-1.5B)."""
+"""Model configurations of the port: the LM slice (Hymba-1.5B) and the
+paper's stencil cases."""

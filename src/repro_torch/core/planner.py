@@ -45,9 +45,11 @@ kernels keep in a block's shared memory (``matrixization.step_smem_bytes``
 / ``sweep_feasible``) against one budget, ``TILE_SMEM_BUDGET`` (two
 blocks per SM), so a plan never picks a tile the kernels cannot launch.
 
-Distributed planning (``StencilProblem(mesh=...)``) and measured
-calibration records come with later slices of the port; ``calibration``
-accepts a plain factor mapping.
+``calibration`` takes a measured
+:class:`repro_torch.launch.calibrate.CalibrationRecord` (this package's or
+the JAX package's, read by ``from_json``) or an equivalent factor
+mapping.  Distributed planning (``StencilProblem(mesh=...)``) comes with
+a later slice of the port.
 """
 from __future__ import annotations
 
@@ -695,19 +697,27 @@ def _base_stats(spec: StencilSpec, block: tuple[int, ...],
 
 
 def _calibration_dict(calibration) -> dict | None:
-    """Normalize plan()'s ``calibration`` mapping (``{"hw": ...,
-    "compute": {key: factor}, "traffic": {key: factor}}``) to the
-    JSON-native summary stored on the plan."""
+    """Normalize plan()'s ``calibration`` input to the JSON-native summary
+    stored on the plan: a ``CalibrationRecord``, an equivalent mapping
+    (``{"hw": ..., "compute": {key: factor}, "traffic": {key: factor}}``),
+    or None.  Duck-typed so ``core`` never imports ``launch``."""
     if calibration is None:
         return None
-    if not isinstance(calibration, Mapping):
-        raise TypeError("calibration must be a mapping of factor tables "
-                        "(measured calibration records are not ported yet)")
-    return {"hw": str(calibration.get("hw", "")),
-            "compute": {k: float(v) for k, v in
-                        sorted(calibration.get("compute", {}).items())},
-            "traffic": {k: float(v) for k, v in
-                        sorted(calibration.get("traffic", {}).items())}}
+    if isinstance(calibration, Mapping):
+        hw = calibration.get("hw", "")
+        compute = calibration.get("compute", {})
+        traffic = calibration.get("traffic", {})
+    elif hasattr(calibration, "compute") and hasattr(calibration, "traffic"):
+        hw = getattr(calibration, "hw", "")
+        compute = calibration.compute
+        traffic = calibration.traffic
+    else:
+        raise TypeError(f"calibration must be a CalibrationRecord or a "
+                        f"mapping of factor tables, got "
+                        f"{type(calibration).__name__}")
+    return {"hw": str(hw),
+            "compute": {k: float(v) for k, v in sorted(compute.items())},
+            "traffic": {k: float(v) for k, v in sorted(traffic.items())}}
 
 
 def _feasible_depth(boundary: str, r: int, n_min: int, steps: int) -> int:
@@ -744,9 +754,9 @@ def plan(problem: StencilProblem, hw=None, *,
     shared memory fits :data:`TILE_SMEM_BUDGET`, the block search's own
     bound.
 
-    ``calibration`` re-ranks the table with per-backend factors (a
-    mapping); the uncalibrated score is kept per row in
-    ``CandidateCost.t_model``.
+    ``calibration`` re-ranks the table with per-(backend, strategy)
+    factors (a ``CalibrationRecord`` or a mapping); the uncalibrated score
+    is kept per row in ``CandidateCost.t_model``.
     """
     if hw is None:
         hw = _default_hw()

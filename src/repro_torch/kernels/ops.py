@@ -23,11 +23,12 @@ import torch
 from repro_torch.core import coefficient_lines as cl
 from repro_torch.core import halo
 from repro_torch.core.matrixization import center_slice
-from repro_torch.core.stencil_spec import StencilSpec
+from repro_torch.core.stencil_spec import StencilSpec, from_gather_coeffs
 from repro_torch.kernels import banded_mixer, stencil_mxu
 
 __all__ = ["stencil_matrixized", "stencil_sweep_matrixized",
-           "cuda_backend_core", "cuda_sweep_core", "banded_mix"]
+           "cuda_backend_core", "cuda_sweep_core", "stencil_apply_vjp",
+           "banded_mix"]
 
 
 def cuda_backend_core(plan):
@@ -292,6 +293,64 @@ def stencil_sweep_matrixized(x: torch.Tensor, *, spec: StencilSpec,
         return stencil_mxu.sweep_cuda_call(xc, plan, aux=aux)
 
     return _run_batched(x, spec, w, block, out_sizes, call, pad=not wrap)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable stencil (learnable coefficients, adjoint tests)
+# ---------------------------------------------------------------------------
+
+class _StencilApply(torch.autograd.Function):
+    """Valid stencil with gradients for the input and the coefficients.
+
+    The forward and the input gradient both run the step kernel: the
+    adjoint of a valid correlation is the zero-padded correlation with the
+    scatter coefficients (gather/scatter duality, Eq. 5).  The coefficient
+    gradient is one reduction a tap, ``dC[o] = sum_p g[p] * x[p + o]``.
+    """
+
+    @staticmethod
+    def forward(ctx, x, coeffs):
+        # the kernel plan needs concrete taps: read them to the host once
+        spec = from_gather_coeffs(coeffs.detach().cpu().numpy())
+        ctx.spec = spec
+        ctx.save_for_backward(x, coeffs)
+        return stencil_matrixized(x, spec=spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, coeffs = ctx.saved_tensors
+        spec = ctx.spec
+        r, nd = spec.order, spec.ndim
+        lead = x.ndim - nd
+        dx = dc = None
+        if ctx.needs_input_grad[0]:
+            adjoint = from_gather_coeffs(np.asarray(spec.scatter_coeffs))
+            gp = halo.pad_trailing(g, [(2 * r, 2 * r)] * nd, "zero")
+            dx = stencil_matrixized(gp, spec=adjoint).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gf = g.to(torch.float32)
+            out = g.shape[lead:]
+            grads = [
+                (gf * x[(Ellipsis,) + tuple(slice(o, o + n) for o, n in
+                                            zip(off, out))]
+                 .to(torch.float32)).sum()
+                for off in np.ndindex(*coeffs.shape)]
+            dc = torch.stack(grads).reshape(coeffs.shape).to(coeffs.dtype)
+        return dx, dc
+
+
+def stencil_apply_vjp(x: torch.Tensor, gather_coeffs: torch.Tensor
+                      ) -> torch.Tensor:
+    """Valid stencil of ``x`` (batch axes lead) with the odd-cubic gather
+    coefficients ``gather_coeffs``, differentiable in both.
+
+    Forward: :func:`stencil_matrixized` (the step kernel on a CUDA tensor).
+    Backward: ``dx`` is the adjoint stencil — the scatter coefficients
+    (``from_gather_coeffs(spec.scatter_coeffs)``) over ``g`` zero-padded
+    by ``2r`` — through the same kernel; ``dC`` a reduction a tap.  A CPU
+    tensor runs the step kernel's plain version on both sides.
+    """
+    return _StencilApply.apply(x, gather_coeffs)
 
 
 # ---------------------------------------------------------------------------

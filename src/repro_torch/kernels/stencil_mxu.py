@@ -46,12 +46,13 @@ from repro_torch.core import matrixization as mx
 from repro_torch.core.coefficient_lines import LineCover
 from repro_torch.core.matrixization import SCRATCH_MODES, check_scratch
 from repro_torch.core.stencil_spec import StencilSpec
-from repro_torch.kernels import cuda_build
+from repro_torch.kernels import cuda_build, launch_cost
+from repro_torch.kernels.launch_cost import LaunchCost
 
 __all__ = ["KernelPlan", "build_kernel_plan", "stencil_cuda_call",
            "stencil_step_plain", "SweepKernelPlan",
            "build_sweep_kernel_plan", "sweep_cuda_call", "sweep_plain",
-           "sweep_aux_shape",
+           "sweep_aux_shape", "step_launch_cost", "sweep_launch_cost",
            "tap_runs", "tap_table", "SCRATCH_MODES", "MAX_BATCH"]
 
 #: The batch rides the kernels' second grid dimension (at most 65535).
@@ -386,6 +387,76 @@ def _launch(fn, kernel: str, x, out, aux, taps, n_taps, batch, out_shape,
 
 
 # ---------------------------------------------------------------------------
+# What a launch executes (launch_cost)
+# ---------------------------------------------------------------------------
+
+def _table_words(plan) -> int:
+    """Words of a plan's tap table: a 4-word header per run, then the
+    coefficients (:func:`_run_table`)."""
+    return 4 * len(tap_runs(plan.taps)) + len(plan.taps)
+
+
+def _launch_blocks(plan, out_shape) -> int:
+    """CUDA blocks of a launch: one per output tile of one state."""
+    tiles = int(np.prod([-(-o // b) for o, b in zip(out_shape, plan.block)]))
+    return (plan.batch or 1) * tiles
+
+
+def step_launch_cost(plan: KernelPlan, x_shape: Sequence[int],
+                     itemsize: int) -> LaunchCost:
+    """One :func:`stencil_cuda_call` on a haloed input of ``x_shape``:
+    every block reads its ``r``-haloed slab, its tile of each aux operand
+    and the tap table, and does one FMA per tap per tile output; the
+    output is written once."""
+    nd, r = plan.spec.ndim, plan.spec.order
+    out = [int(s) - 2 * r for s in x_shape[len(x_shape) - nd:]]
+    blocks = _launch_blocks(plan, out)
+    tile = int(np.prod(plan.block))
+    slab = int(np.prod([b + 2 * r for b in plan.block]))
+    per_block = (slab * itemsize + plan.n_aux * tile * 4
+                 + _table_words(plan) * 4)
+    return LaunchCost(
+        fmas=len(plan.taps) * tile * blocks,
+        bytes=blocks * per_block + (plan.batch or 1) * int(np.prod(out))
+        * itemsize)
+
+
+def sweep_launch_cost(plan: SweepKernelPlan, x_shape: Sequence[int],
+                      itemsize: int) -> LaunchCost:
+    """One :func:`sweep_cuda_call`: every block reads its ``T*r``-haloed
+    slab (wrapped or haloed alike) and the tap table, and at each step
+    ``s`` computes — and scales by each aux operand — the live extent
+    ``step_exts[s]``, so the halo rings it recomputes are counted; the
+    output is written once."""
+    nd, w = plan.spec.ndim, plan.steps * plan.spec.order
+    out = [int(s) - (0 if plan.wrap else 2 * w)
+           for s in x_shape[len(x_shape) - nd:]]
+    blocks = _launch_blocks(plan, out)
+    live = sum(int(np.prod(e)) for e in plan.step_exts)
+    slab = int(np.prod([b + 2 * w for b in plan.block]))
+    per_block = (slab * itemsize + plan.n_aux * live * 4
+                 + _table_words(plan) * 4)
+    return LaunchCost(
+        fmas=len(plan.taps) * live * blocks,
+        bytes=blocks * per_block + (plan.batch or 1) * int(np.prod(out))
+        * itemsize)
+
+
+def _priced(name: str, cost):
+    """Report a wrapper's :class:`LaunchCost` to the thread's recorders
+    around every call, kernel or plain version."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(x, plan, aux=()):
+            with launch_cost.kernel_region(
+                    name, lambda: cost(plan, tuple(x.shape),
+                                       x.element_size())):
+                return fn(x, plan, aux)
+        return call
+    return wrap
+
+
+# ---------------------------------------------------------------------------
 # Kernel 1: one valid-mode step
 # ---------------------------------------------------------------------------
 
@@ -417,6 +488,7 @@ def stencil_step_plain(x: torch.Tensor, plan: KernelPlan,
     return acc.to(x.dtype)
 
 
+@_priced("stencil_step", step_launch_cost)
 def stencil_cuda_call(x: torch.Tensor, plan: KernelPlan,
                       aux: Sequence[torch.Tensor] = ()) -> torch.Tensor:
     """Run the matrixized stencil step over a haloed spatial tensor.
@@ -516,6 +588,7 @@ def sweep_plain(x: torch.Tensor, plan: SweepKernelPlan,
     return cur.to(x.dtype)
 
 
+@_priced("stencil_sweep", sweep_launch_cost)
 def sweep_cuda_call(x: torch.Tensor, plan: SweepKernelPlan,
                     aux: Sequence[torch.Tensor] = ()) -> torch.Tensor:
     """Advance a spatial tensor by ``plan.steps`` base steps in one kernel.

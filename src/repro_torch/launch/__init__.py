@@ -1,1 +1,2 @@
-"""Launch-side records of the port (hardware constants)."""
+"""Launch-side tools of the port: hardware constants, serving, the
+planner's calibration and plan report."""
