@@ -43,7 +43,11 @@ Phases:
 8. hold the LM kernels against their plain versions: the banded mixer
    (shared and depthwise band, W in {1, 2, 4}, T = 1539, D = 3237, batch 1
    and 4, f32 and bf16) and flash attention (causal and full, f32 and
-   bf16, B = 4, H = 25, S in {40, 128, 1536}, Dh in {8, 16, 64, 128}), and
+   bf16, B = 4, H = 25, S in {40, 128, 1536}, Dh in {8, 16, 64, 128}),
+   ``ops.banded_mix``'s gradients (``dx`` by flip-mix-flip through the
+   kernel, ``dband``) against autograd through the plain version at 1e-5
+   x max|plain| (the train shape (2, 1024, 3200) depthwise, T = 1027, a
+   shared band, and a leading batch beyond ``MAX_BATCH``), and
    ``flash_attention``'s gradients against autograd through the plain
    version;
 9. build Hymba-1.5B at full width and depth on the card from a seeded
@@ -109,18 +113,39 @@ slice:
    8192^2 f32 and star3d_r1 256^3, loss sum(cos(y)): one step launch for
    the forward and one for the adjoint, the step kernel's plain version
    never run; dx against plain autograd on the card at 1e-4, dC at 1e-4
-   x sum|g x| per tap; forward and backward ms.
+   x sum|g x| per tap; forward and backward ms;
+16. Hymba-1.5B trains at full width and depth through ``Trainer.run``:
+   f32 parameters, bf16 compute, remat "full", batch 4 x 1024 tokens of
+   ``SyntheticLM`` (seed 0) in 2 microbatches, AdamW at
+   ``cosine_schedule(3e-4)``, 4 steps and the final checkpoint: loss and
+   grad norm finite at every step, the last loss below the first, the
+   banded mixer's forward and backward launches equal to 32 layers x 2
+   microbatches x 4 steps x (2 forward + 1 backward) (counters zeroed
+   just before ``run``); step time, tokens/s, the checkpoint's write
+   time, peak memory, and one profiled step's device time by span;
+17. (a) one f32-compute step at full width and depth (batch 1 x 1024),
+   ``kernel_impl="cuda"`` against ``"ref"``: loss to a relative 1e-5,
+   grad norm to 1e-4, every layer's ``conv_band`` gradient to 1e-3 x
+   max|ref|; (b) Trainer recovery at full width, depth 2: 6 steps, a
+   checkpoint every 2, faults before steps 3 and 5, in a subprocess with
+   deterministic algorithms — bit-identical to an uninterrupted run;
+
+and phase 6's row for the banded mixer's backward (``dx`` at (2, 1024,
+3200) f32: 20 back-to-back backward calls, the launch alone, its byte
+bound, autograd through the plain version and through ``F.conv1d``).
 
 Any kernel-vs-plain error over its tolerance (phases 3, 5, 6, 8 and 10),
 any main-path cell off its oracle, or any serve, server, chaos,
-rollout, calibration or gradient check that fails (phases 9-15) fails
-the run.
+rollout, calibration, gradient or training check that fails (phases
+9-17) fails the run.
 
 The last three lines are a JSON object ``{"kernels": [...]}`` (all four
 kernels; ``launches`` is the count of each kernel's own path — phase 4
 for the step and sweep kernels — and the step and sweep rows give the
 counts of phases 4, 11, 12 (the seeded server), 13, 14 and 15 in
-``launches_by_path``), the card's ``name,
+``launches_by_path``; the banded mixer's row counts phase 9's serve run,
+with phase 16's train launches beside it, and the ``banded_mixer_backward``
+row phase 16's backward launches), the card's ``name,
 power.limit`` and ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository's sources beside this file, it exits non-zero and prints no
 result.
@@ -214,6 +239,26 @@ CALIBRATE_TOP_K = 3
 VJP_CELLS = (dict(name="box2d_r1", grid=(8192, 8192)),
              dict(name="star3d_r1", grid=(256, 256, 256)))
 VJP_DC_REL_TOL = 1e-4
+
+# phase 8: banded_mix backward cases (leading axes, T, D, band kind); the
+# last has a leading batch beyond the kernel's grid limit MAX_BATCH
+BANDED_GRAD_CASES = (((2,), 1024, 3200, "depthwise"),
+                     ((2,), 1027, 3200, "depthwise"),
+                     ((2,), 1024, 3200, "shared"),
+                     ((65535 + 3,), 6, 8, "depthwise"))
+# dx and dband against autograd through the plain version: this share of
+# max|plain|
+BANDED_GRAD_REL_TOL = 1e-5
+# phase 16: Hymba-1.5B trains at full width and depth (f32 parameters,
+# bf16 compute, remat "full")
+TRAIN = dict(batch=4, seq=1024, microbatches=2, steps=4, lr=3e-4, seed=0)
+# phase 17a: one f32-compute step, kernel_impl "cuda" against "ref"
+TRAIN_CHECK = dict(batch=1, seq=1024, seed=1)
+TRAIN_CHECK_REL_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "conv_band": 1e-3}
+# phase 17b: Trainer recovery at full width, depth 2 (one windowed and one
+# global layer: the pattern's period cut from 8 to 2)
+RECOVERY = dict(layers=2, period=2, batch=2, seq=256, steps=6, every=2,
+                faults=(3, 5))
 
 
 def log(msg: str) -> None:
@@ -556,6 +601,24 @@ def profiled_device_ms(fn, kernel: str, reps: int = 20):
     return total / count if count else None
 
 
+def profiled_call_ms(fn, reps: int = 20):
+    """Mean device time (ms) of every kernel one ``fn()`` launches, over
+    ``reps`` calls, from ``torch.profiler``; None when it saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA) / 1e3
+    return total / reps if total else None
+
+
 def bound(read_bytes: float, write_bytes: float, flops: float,
           rate: str = "f32"):
     """(least ms, what bounds it): the bytes over the HBM rate against the
@@ -834,6 +897,36 @@ def lm_kernel_cases(device):
                        plain, tol)
 
 
+def banded_grad_cases(device):
+    """Yield (label, kernel output, plain output, tolerance) for the
+    gradients of ``ops.banded_mix`` (``dx`` by flip-mix-flip through the
+    kernel, ``dband`` a reduction a tap) against autograd through the
+    plain version on the card, for each of :data:`BANDED_GRAD_CASES`, at
+    ``BANDED_GRAD_REL_TOL`` x max|plain|."""
+    import torch
+    from repro_torch.kernels import banded_mixer as bm
+    from repro_torch.kernels import ops
+
+    for i, (lead, t_len, d, kind) in enumerate(BANDED_GRAD_CASES):
+        shape = lead + (t_len, d)
+        x = seeded_normal(shape, 5500 + 3 * i, device)
+        band = seeded_normal((4, d) if kind == "depthwise" else (4,),
+                             5501 + 3 * i, device) / 4
+        g = seeded_normal(shape, 5502 + 3 * i, device)
+        grads = []
+        for fn in (ops.banded_mix, bm.banded_mixer_plain):
+            xr, br = x.clone().requires_grad_(), band.clone().requires_grad_()
+            xin = xr if fn is ops.banded_mix else xr.reshape(-1, t_len, d)
+            y = fn(xin, br).reshape(shape)
+            grads.append(torch.autograd.grad(y, (xr, br), g))
+        for j, what in enumerate(("dx", "dband")):
+            got, want = grads[0][j], grads[1][j]
+            tol = BANDED_GRAD_REL_TOL * want.abs().max().item()
+            yield (f"banded_mix {what} x{shape} {kind} band f32 [tol = "
+                   f"{BANDED_GRAD_REL_TOL:g} x max|plain|]", got, want, tol)
+        del x, g, grads
+
+
 def check_flash_grad(device, failures: list) -> None:
     """Gradients of ``flash_attention`` (kernel forward, dense backward)
     against autograd through the plain version."""
@@ -870,10 +963,10 @@ def _recording_banded_configs(seen: set):
     from repro_torch.kernels import banded_mixer as bm
     from repro_torch.kernels import ops
 
-    def record(x, band, block_t=bm.BLOCK_T, block_d=bm.BLOCK_D):
+    def record(x, band, block_t=bm.BLOCK_T, block_d=bm.BLOCK_D, **kw):
         seen.add((tuple(x.shape), tuple(band.shape), x.dtype, block_t,
                   block_d))
-        return bm.banded_mixer_cuda_call(x, band, block_t, block_d)
+        return bm.banded_mixer_cuda_call(x, band, block_t, block_d, **kw)
 
     ops.banded_mixer = types.SimpleNamespace(MAX_BATCH=bm.MAX_BATCH,
                                              banded_mixer_cuda_call=record)
@@ -1957,6 +2050,415 @@ def stencil_vjp_on_card(device, failures: list) -> dict:
     return {"launches": {"stencil_step": total, "stencil_sweep": 0}}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: Hymba-1.5B trains at full width and depth
+# ---------------------------------------------------------------------------
+
+# profiler spans of the train step (``record_function`` in the port): the
+# SSM scan's forward (and remat recompute) and backward, the banded mixer's
+# backward (flips + the dx launch), attention and the CE forward (each with
+# its recompute; their backward kernels fall under matmuls and other), and
+# the optimizer
+_TRAIN_SPANS = ("ssm_scan", "ssm_scan_backward", "banded_mix_backward",
+                "attention", "cross_entropy", "adamw")
+
+
+def _train_split(prof) -> dict:
+    """Device time (ms) of a profiled train step: the banded mixer's
+    forward launches (its kernel outside every span), each of
+    :data:`_TRAIN_SPANS`, the matmuls outside the spans, and the rest;
+    ``kernels``, the count of device kernels and copies.
+
+    A step holds millions of profiler events, so this reads the raw
+    events (``kineto_results``), not ``prof.events()``: a kernel belongs
+    to the span, on its launching thread, that holds the start of the op
+    it is linked to (the spans do not nest)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    spans: dict = {}        # thread -> [(start, end, name)]
+    ops: dict = {}          # correlation id -> (start, thread)
+    kernels = []            # (name, ns, linked correlation id)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            if e.linked_correlation_id() != 0:
+                continue                # a runtime call, not an op
+            name = e.name()
+            if name in _TRAIN_SPANS:
+                spans.setdefault(e.start_thread_id(), []).append(
+                    (e.start_ns(), e.end_ns(), name))
+            ops[e.correlation_id()] = (e.start_ns(), e.start_thread_id())
+        elif e.device_type() == DeviceType.CUDA and \
+                not e.is_user_annotation():
+            kernels.append((e.name().lower(), e.end_ns() - e.start_ns(),
+                            e.linked_correlation_id()))
+    for lst in spans.values():
+        lst.sort()
+    starts = {t: [s[0] for s in lst] for t, lst in spans.items()}
+
+    def span_of(corr):
+        start, thread = ops.get(corr, (None, None))
+        if thread not in spans:
+            return None
+        i = bisect.bisect_right(starts[thread], start) - 1
+        if i >= 0 and start < spans[thread][i][1]:
+            return spans[thread][i][2]
+        return None
+
+    split = dict.fromkeys(("total", "banded_mixer_forward") + _TRAIN_SPANS
+                          + ("matmuls", "other"), 0.0)
+    for name, ns, corr in kernels:
+        ms = ns / 1e6
+        split["total"] += ms
+        span = span_of(corr)
+        if span is not None:
+            split[span] += ms
+        elif "banded_mixer_kernel" in name:
+            split["banded_mixer_forward"] += ms
+        elif any(m in name for m in _MATMUL):
+            split["matmuls"] += ms
+        else:
+            split["other"] += ms
+    split["banded_mixer_backward"] = split.pop("banded_mix_backward")
+    split["kernels"] = len(kernels)
+    return split
+
+
+def train_hymba(device, failures: list) -> dict:
+    """Phase 16: ``Trainer.run`` on Hymba-1.5B at full width and depth
+    (f32 parameters, bf16 compute, remat "full"), batch 4 x 1024 tokens of
+    ``SyntheticLM`` (seed 0) in two microbatches, AdamW at
+    ``cosine_schedule(3e-4)``, 4 steps and the final save.  The banded
+    mixer's counters are zeroed just before ``run`` and read just after;
+    then one more step under the profiler."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import banded_mixer as bm
+    from repro_torch.optim.adamw import adamw, cosine_schedule
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t = TRAIN
+    cfg = get_config("hymba_1_5b")
+    ckpt_dir = ROOT / "_chip" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tr = Trainer(
+        cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=t["seq"],
+                        global_batch=t["batch"], seed=t["seed"]),
+        TrainerConfig(total_steps=t["steps"], checkpoint_every=10 ** 9,
+                      checkpoint_dir=str(ckpt_dir), log_every=1,
+                      async_checkpoint=False,
+                      microbatches=t["microbatches"]),
+        optimizer=adamw(lr=cosine_schedule(t["lr"], warmup=1,
+                                           total=t["steps"])),
+        device=device)
+    saves = []
+    save = tr.ckpt.save
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        save(*args, **kwargs)
+        saves.append(time.perf_counter() - t0)
+    tr.ckpt.save = timed_save
+    torch.cuda.reset_peak_memory_stats()
+    bm.banded_mixer_cuda_call.launches = 0      # zeroed just before the path
+    bm.banded_mixer_cuda_call.backward_launches = 0
+    t0 = time.perf_counter()
+    state = tr.run()
+    run_s = time.perf_counter() - t0
+    launches = bm.banded_mixer_cuda_call.launches
+    backward = bm.banded_mixer_cuda_call.backward_launches
+    peak = torch.cuda.max_memory_allocated()
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*")
+                     if f.is_file())
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    log_ = tr.metrics_log
+    losses = [m["loss"] for m in log_]
+    norms = [m["grad_norm"] for m in log_]
+    mb_batch = t["batch"] // t["microbatches"]
+    per_pass = cfg.num_layers * t["microbatches"] * t["steps"] * -(
+        -mb_batch // bm.MAX_BATCH)
+    want = {"forward": 2 * per_pass, "backward": per_pass}
+    got = {"forward": launches - backward, "backward": backward}
+    finite = all(map(lambda v: v == v and abs(v) != float("inf"),
+                     losses + norms))
+    falls = len(losses) == t["steps"] and losses[-1] < losses[0]
+    step_s = statistics.median(m["sec_per_step"] for m in log_[1:])
+    tokens = t["batch"] * t["seq"]
+    ok = finite and falls and got == want and int(state.step) == t["steps"]
+    for m in log_:
+        log(f"  step {m['step']}: loss {m['loss']:.4f}, grad norm "
+            f"{m['grad_norm']:.4f}, {m['sec_per_step']:.3f} s (host clock)")
+    log(f"  {cfg.name} {cfg.num_layers} layers, f32 parameters, "
+        f"{cfg.compute_dtype} compute, remat {cfg.remat}: step "
+        f"{step_s:.3f} s (median of steps 1-{t['steps'] - 1}), "
+        f"{tokens / step_s:.0f} tokens/s; Trainer.run {run_s:.1f} s; final "
+        f"checkpoint {ckpt_bytes / 2**30:.2f} GiB written in "
+        f"{saves[-1]:.1f} s; peak memory {peak / 2**30:.2f} GiB; banded "
+        f"mixer launches {got} (predicted {want}: {cfg.num_layers} layers x "
+        f"{t['microbatches']} microbatches x {t['steps']} steps, forward "
+        f"and remat recompute, and one dx); finite {finite}, last loss < "
+        f"first {falls}{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append(f"train: finite={finite} falls={falls} launches="
+                        f"{got}/{want} step={int(state.step)}")
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr._step(state, tr.pipeline.batch_at(t["steps"]))
+        torch.cuda.synchronize()
+    split = _train_split(prof)
+    prof_s = time.perf_counter() - t0
+    if split["total"] == 0.0:
+        log("  profiled step: the profiler saw no device time: breakdown "
+            "not measured")
+    else:
+        parts = ", ".join(f"{k} {v:.1f}" for k, v in split.items()
+                          if k not in ("total", "kernels"))
+        log(f"  profiled step: {split['kernels']} device kernels and copies,"
+            f" device {split['total']:.1f} ms = {parts} ms; "
+            f"device idle {max(0.0, 1 - split['total'] / (step_s * 1e3)):.1%}"
+            f" of the unprofiled step (profiling and its read took "
+            f"{prof_s:.1f} s)")
+    del state, tr, prof
+    torch.cuda.empty_cache()
+    return {"launches": launches, "backward_launches": backward}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: training correctness on the card
+# ---------------------------------------------------------------------------
+
+def train_consistency(device, failures: list) -> None:
+    """Phase 17a: one f32-compute step of Hymba-1.5B at full width and
+    depth (batch 1 x 1024): its loss and gradients with
+    ``kernel_impl="cuda"`` (the banded mixer's kernel forward and
+    backward) against ``"ref"`` (the shifted adds, autograd) on the same
+    weights; the loss to a relative 1e-5, the global grad norm to 1e-4,
+    each layer's ``conv_band`` gradient to 1e-3 x max|ref|."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import banded_mixer as bm
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.train_step import make_loss_fn
+
+    c = TRAIN_CHECK
+    cfg = dataclasses.replace(get_config("hymba_1_5b"),
+                              compute_dtype="float32")
+    model = tf.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device,
+        trainable=True)
+    batch = {k: torch.as_tensor(v).to(device) for k, v in SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=c["seq"],
+                   global_batch=c["batch"], seed=c["seed"])).batch_at(0)
+        .items()}
+    res = {}
+    for impl in ("cuda", "ref"):
+        model.cfg = dataclasses.replace(cfg, kernel_impl=impl)
+        for p in model.parameters():
+            p.grad = None
+        bm.banded_mixer_cuda_call.launches = 0
+        bm.banded_mixer_cuda_call.backward_launches = 0
+        loss, _ = make_loss_fn(model.cfg)(model, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        res[impl] = {
+            "loss": loss.item(),
+            "norm": global_norm([p.grad for p in model.parameters()]).item(),
+            "bands": [layer.ssm["conv_band"].grad.clone()
+                      for layer in model.layers],
+            "launches": (bm.banded_mixer_cuda_call.launches,
+                         bm.banded_mixer_cuda_call.backward_launches)}
+    model.cfg = cfg
+    k, r = res["cuda"], res["ref"]
+    tol = TRAIN_CHECK_REL_TOL
+    loss_rel = abs(k["loss"] - r["loss"]) / abs(r["loss"])
+    norm_rel = abs(k["norm"] - r["norm"]) / abs(r["norm"])
+    band = max((a - b).abs().max().item() / b.abs().max().item()
+               for a, b in zip(k["bands"], r["bands"]))
+    # (all, backward): forward and remat recompute, and one dx, a layer
+    want = (3 * cfg.num_layers, cfg.num_layers)
+    ok = (loss_rel <= tol["loss"] and norm_rel <= tol["grad_norm"]
+          and band <= tol["conv_band"] and r["launches"] == (0, 0)
+          and k["launches"] == want)
+    log(f"  f32, batch {c['batch']} x {c['seq']}, {cfg.num_layers} layers: "
+        f"loss {k['loss']:.6f} (cuda) vs {r['loss']:.6f} (ref), relative "
+        f"{loss_rel:.2e} (tol {tol['loss']:g}); grad norm {k['norm']:.6f} "
+        f"vs {r['norm']:.6f}, relative {norm_rel:.2e} (tol "
+        f"{tol['grad_norm']:g}); conv_band grads max|diff|/max|ref| over "
+        f"layers {band:.2e} (tol {tol['conv_band']:g}); banded mixer "
+        f"launches (all, backward) cuda {k['launches']} (expected {want}), "
+        f"ref {r['launches']}{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append(f"train consistency: loss {loss_rel:.2e}, norm "
+                        f"{norm_rel:.2e}, band {band:.2e}, launches "
+                        f"{k['launches']}/{r['launches']}")
+    del model, batch, res
+    torch.cuda.empty_cache()
+
+
+def _recovery_child(device="cuda") -> int:
+    """Phase 17b's subprocess (``--train-recovery``): deterministic
+    algorithms on (``CUBLAS_WORKSPACE_CONFIG`` set by the parent before
+    the process starts); Hymba-1.5B at full width and depth 2 trained for
+    6 steps uninterrupted, and again with a checkpoint every 2 steps and
+    faults injected before steps 3 and 5.  Prints one JSON line."""
+    import dataclasses
+    import shutil
+
+    import torch
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    r = RECOVERY
+    cfg = dataclasses.replace(get_config("hymba_1_5b"),
+                              num_layers=r["layers"],
+                              local_global_period=r["period"])
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=r["seq"],
+                      global_batch=r["batch"], seed=0)
+    base = ROOT / "_chip" / "recovery"
+    shutil.rmtree(base, ignore_errors=True)
+    pending = set(r["faults"])
+    hit = []
+
+    def inject(step):
+        if step in pending:
+            pending.discard(step)
+            hit.append(step)
+            raise RuntimeError(f"injected@{step}")
+
+    finals, secs = [], []
+    for name, every, injector in (("plain", 10 ** 9, None),
+                                  ("faulted", r["every"], inject)):
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, dcfg, TrainerConfig(
+            total_steps=r["steps"], checkpoint_every=every,
+            checkpoint_dir=str(base / name), log_every=1,
+            async_checkpoint=False), fault_injector=injector,
+            device=device)
+        finals.append(tr.run())
+        secs.append(time.perf_counter() - t0)
+    a, b = finals
+    pairs = list(zip(a.params.parameters(), b.params.parameters()))
+    pairs += [(a.opt.mu[k], b.opt.mu[k]) for k in a.opt.mu]
+    pairs += [(a.opt.nu[k], b.opt.nu[k]) for k in a.opt.nu]
+    identical = all(torch.equal(x, y) for x, y in pairs)
+    diff = max((x - y).abs().max().item() for x, y in pairs)
+    shutil.rmtree(base, ignore_errors=True)
+    print(json.dumps({"identical": identical, "max_abs_diff": diff,
+                      "faults_hit": hit, "steps": [int(a.step), int(b.step)],
+                      "seconds": secs}))
+    return 0
+
+
+def train_recovery(device, failures: list) -> None:
+    """Phase 17b: :func:`_recovery_child` in a subprocess, where
+    ``CUBLAS_WORKSPACE_CONFIG`` is set before the first cuBLAS handle and
+    deterministic algorithms are on; the faulted run's parameters and
+    moments must equal the uninterrupted run's bit for bit."""
+    import os
+
+    import torch
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--train-recovery"], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    took = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    try:
+        res = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        log(f"  recovery subprocess exited {out.returncode}; stderr tail:\n"
+            f"{out.stderr[-2000:]}  FAIL")
+        failures.append(f"train recovery: subprocess exit {out.returncode}")
+        return
+    r = RECOVERY
+    ok = (out.returncode == 0 and res["identical"]
+          and res["faults_hit"] == list(r["faults"])
+          and res["steps"] == [r["steps"], r["steps"]])
+    log(f"  depth {r['layers']} (period {r['period']}), batch {r['batch']} x "
+        f"{r['seq']}, {r['steps']} steps, checkpoint every {r['every']}, "
+        f"faults before steps {res['faults_hit']}: final parameters and "
+        f"moments bit-identical to the uninterrupted run {res['identical']} "
+        f"(max|diff| {res['max_abs_diff']:.3e}; deterministic algorithms, "
+        f"CUBLAS_WORKSPACE_CONFIG=:4096:8); runs {res['seconds'][0]:.1f} s "
+        f"and {res['seconds'][1]:.1f} s, subprocess {took:.1f} s"
+        f"{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append(f"train recovery: {res}")
+
+
+def time_banded_backward(device, train: dict, failures: list) -> dict:
+    """Phase 6's row for the banded mixer's backward at the train shape
+    (2, 1024, 3200) f32 depthwise: ``dx`` by flip-mix-flip (CUDA events
+    over 20 back-to-back backward calls of ``ops.banded_mix``, and the
+    launch alone), its byte bound (g read, dx written), autograd through
+    the plain version, and autograd of ``F.conv1d(groups=D)``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import banded_mixer as bm
+    from repro_torch.kernels import ops
+
+    shape, w = (2, 1024, 3200), 4
+    d = shape[-1]
+    x = seeded_normal(shape, 9300, device)
+    band = seeded_normal((w, d), 9301, device) / w
+    g = seeded_normal(shape, 9302, device)
+    weight = band.flip(0).t().contiguous()[:, None, :]
+
+    def graph(fn):
+        xr = x.clone().requires_grad_()
+        return xr, fn(xr)
+    xk, yk = graph(lambda xr: ops.banded_mix(xr, band))
+    xp, yp = graph(lambda xr: bm.banded_mixer_plain(xr, band))
+    xl, yl = graph(lambda xr: F.conv1d(F.pad(xr.transpose(1, 2), (w - 1, 0)),
+                                       weight, groups=d).transpose(1, 2))
+    row = _time_row(
+        "banded_mixer_backward",
+        "src/repro_torch/kernels/csrc/banded_mixer.cu",
+        "src/repro/kernels/banded_mixer.py:53", train["backward_launches"],
+        failures,
+        kernel=lambda: torch.autograd.grad(yk, xk, g, retain_graph=True)[0],
+        plain=lambda: torch.autograd.grad(yp, xp, g, retain_graph=True)[0],
+        library=lambda: torch.autograd.grad(yl, xl, g,
+                                            retain_graph=True)[0],
+        inputs=(g, band), flops_per_out=2 * w,
+        desc=f"banded_mix backward dx (flip-mix-flip) x{shape} f32 "
+             f"depthwise W={w}", library_name="F.conv1d(groups=D) autograd")
+    gf = torch.flip(g, dims=(-2,))
+    launch_ms = cuda_ms(lambda: bm.banded_mixer_cuda_call(gf, band), reps=20)
+    device_ms = profiled_call_ms(
+        lambda: torch.autograd.grad(yk, xk, g, retain_graph=True))
+    log(f"  banded_mix backward: the dx launch alone {launch_ms:.4f} ms "
+        f"(bound {row['bound_ms']:.4f} ms, {row['bound_ms'] / launch_ms:.1%}"
+        f" of it); a backward call's device time (two flips and the "
+        f"launch, torch.profiler, 20 calls) "
+        f"{'not measured' if device_ms is None else f'{device_ms:.4f} ms'}"
+        f", of the {row['ms']:.4f} ms a call takes back to back (the "
+        f"host's autograd call)")
+    row["launch_ms"] = launch_ms
+    row["device_ms"] = device_ms
+    del x, g, gf, xk, yk, xp, yp, xl, yl
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2012,6 +2514,7 @@ def main() -> int:
 
     log("phase 8: the LM kernels against their plain versions")
     check_cases(device, failures, lm_kernel_cases(device))
+    check_cases(device, failures, banded_grad_cases(device))
     check_flash_grad(device, failures)
 
     log("phase 9: Hymba-1.5B serves batch 4 x 1536 tokens, 32 greedy "
@@ -2029,6 +2532,9 @@ def main() -> int:
     log("phase 7 (serve cell): one warm prefill and decode step, device "
         "time by profiler")
     serve_breakdown(device, lm)
+    serve_launches = lm["launches"]
+    del lm                          # the serve model: ~3.3 GB of the card
+    torch.cuda.empty_cache()
 
     t_serving = time.perf_counter()
     log("phase 11: StencilServer at full width, star2d_r2 4096^2/2730^2, "
@@ -2048,6 +2554,25 @@ def main() -> int:
         "8192^2 and star3d_r1 256^3")
     vjp = stencil_vjp_on_card(device, failures)
     log(f"  phases 14-15 took {time.perf_counter() - t_planner:.1f} s")
+    t_train = time.perf_counter()
+    log("phase 16: Hymba-1.5B trains at full width and depth, batch 4 x "
+        "1024 tokens in 2 microbatches, 4 steps through Trainer.run")
+    train = train_hymba(device, failures)
+    log("phase 17a: one f32 train step at full width and depth, "
+        "kernel_impl cuda against ref")
+    train_consistency(device, failures)
+    log("phase 17b: Trainer recovery at full width, depth 2, faults before "
+        "steps 3 and 5")
+    train_recovery(device, failures)
+    log("phase 6 (train kernels): the banded mixer's backward at the train "
+        "shape")
+    rows.append(time_banded_backward(device, train, failures))
+    log(f"  phases 16-17 took {time.perf_counter() - t_train:.1f} s")
+    for row in rows:
+        if row["name"] == "banded_mixer":
+            row["launches_by_path"] = {
+                "serve": serve_launches, "train": train["launches"],
+                "train_backward": train["backward_launches"]}
     for row in rows:
         if row["name"] in main_run["launches"]:
             by_path = {"main": main_run["launches"][row["name"]],
@@ -2079,4 +2604,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--train-recovery"]:
+        sys.exit(_recovery_child())
     sys.exit(main())

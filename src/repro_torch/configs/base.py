@@ -25,7 +25,7 @@ __all__ = [
 KERNEL_IMPLS = ("cuda", "ref")
 
 #: architectures whose whole serving path the port runs; the others wait
-#: for ROADMAP Queue 1 item 9 (rwkv6, MoE, cross-attention, codebooks, VLM)
+#: for ROADMAP Queue 1 item 5 (rwkv6, MoE, cross-attention, codebooks, VLM)
 PORTED_ARCHS = ("hymba_1_5b",)
 
 
@@ -146,7 +146,7 @@ def _load(arch: str):
     if arch not in PORTED_ARCHS:
         raise NotImplementedError(
             f"architecture {arch!r} is not ported yet (ported: "
-            f"{', '.join(PORTED_ARCHS)}); see ROADMAP.md Queue 1 item 9")
+            f"{', '.join(PORTED_ARCHS)}); see ROADMAP.md Queue 1 item 5")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

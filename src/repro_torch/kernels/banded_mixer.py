@@ -18,7 +18,9 @@ memory, f32 accumulation, ragged T and D masked in the kernel.
 
 Routing: a CPU tensor runs :func:`banded_mixer_plain`; a CUDA tensor
 launches the kernel or raises — there is no fallback.  The wrapper counts
-its launches in ``banded_mixer_cuda_call.launches``.
+its launches in ``banded_mixer_cuda_call.launches``, and those made for a
+gradient (``backward=True``: ``ops.banded_mix``'s ``dx``) also in
+``banded_mixer_cuda_call.backward_launches``.
 """
 from __future__ import annotations
 
@@ -90,8 +92,8 @@ def _launcher():
 
 
 def banded_mixer_cuda_call(x: torch.Tensor, band: torch.Tensor,
-                           block_t: int = BLOCK_T,
-                           block_d: int = BLOCK_D) -> torch.Tensor:
+                           block_t: int = BLOCK_T, block_d: int = BLOCK_D,
+                           *, backward: bool = False) -> torch.Tensor:
     """Causal banded mix of each (T, D) sequence of ``x`` (B, T, D).
 
     ``band``: (W,) shared or (W, D) depthwise, read as f32.  Returns
@@ -101,7 +103,8 @@ def banded_mixer_cuda_call(x: torch.Tensor, band: torch.Tensor,
     the kernel masks the ragged edges.
 
     A CPU tensor runs :func:`banded_mixer_plain`; a CUDA tensor launches
-    ``csrc/banded_mixer.cu`` or raises.
+    ``csrc/banded_mixer.cu`` or raises.  ``backward`` marks a launch made
+    for a gradient: it is counted in ``backward_launches`` as well.
     """
     _check(x, band)
     if x.device.type == "cpu":
@@ -134,7 +137,10 @@ def banded_mixer_cuda_call(x: torch.Tensor, band: torch.Tensor,
         raise RuntimeError(f"banded_mixer kernel launch failed with CUDA "
                            f"error {err}")
     banded_mixer_cuda_call.launches += 1
+    if backward:
+        banded_mixer_cuda_call.backward_launches += 1
     return out
 
 
 banded_mixer_cuda_call.launches = 0
+banded_mixer_cuda_call.backward_launches = 0

@@ -19,6 +19,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core import coefficient_lines as cl
 from repro_torch.core import halo
@@ -357,10 +358,71 @@ def stencil_apply_vjp(x: torch.Tensor, gather_coeffs: torch.Tensor
 # Causal banded mixer (LM integration)
 # ---------------------------------------------------------------------------
 
+def _mix(x: torch.Tensor, band: torch.Tensor, block_t: int, block_d: int,
+         backward: bool = False) -> torch.Tensor:
+    """The banded mixer over ``(..., T, D)``: leading axes folded into the
+    kernel's batch, ``MAX_BATCH`` sequences a launch."""
+    if x.ndim < 2:
+        raise ValueError(f"x must be (..., T, D), got {tuple(x.shape)}")
+    t_len, d = x.shape[-2], x.shape[-1]
+    xb = x.reshape((-1, t_len, d)).contiguous()
+    bt = min(block_t, max(t_len, 1))
+    chunk = banded_mixer.MAX_BATCH
+    outs = [banded_mixer.banded_mixer_cuda_call(
+        xb[i:i + chunk], band, bt, block_d, backward=backward)
+        for i in range(0, max(xb.shape[0], 1), chunk)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return out.reshape(x.shape)
+
+
+def _band_grad(x: torch.Tensor, g: torch.Tensor, band: torch.Tensor
+               ) -> torch.Tensor:
+    """``dband[s] = sum_t g[t] * x[t-s]`` in f32, summed over every axis but
+    the channels (a (W, D) band) or over all axes (a (W,) band), one shift
+    at a time (the (W, ..., T, D) stack of shifted inputs is never built)."""
+    t_len, d = x.shape[-2], x.shape[-1]
+    gf, xf = g.to(torch.float32), x.to(torch.float32)
+    rows = []
+    for s in range(band.shape[0]):
+        if s >= t_len:
+            rows.append(torch.zeros(d, dtype=torch.float32, device=x.device))
+            continue
+        prod = gf[..., s:, :] * xf[..., :t_len - s, :]
+        rows.append(prod.reshape(-1, d).sum(dim=0))
+    dband = torch.stack(rows)
+    return (dband.sum(dim=-1) if band.ndim == 1 else dband).to(band.dtype)
+
+
+class _BandedMix(torch.autograd.Function):
+    """The reference's ``custom_vjp`` of ``banded_mix``: the anti-causal
+    ``dx`` is flip-mix-flip along T through the same kernel, ``dband`` a
+    reduction a tap (plain torch, as the reference's einsum)."""
+
+    @staticmethod
+    def forward(ctx, x, band, block_t, block_d):
+        ctx.save_for_backward(x, band)
+        ctx.tile = (block_t, block_d)
+        return _mix(x, band, block_t, block_d)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, band = ctx.saved_tensors
+        dx = dband = None
+        with record_function("banded_mix_backward"):
+            if ctx.needs_input_grad[0]:
+                gf = torch.flip(g, dims=(-2,))
+                dx = torch.flip(_mix(gf, band, *ctx.tile, backward=True),
+                                dims=(-2,)).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                dband = _band_grad(x, g, band)
+        return dx, dband, None, None
+
+
 def banded_mix(x: torch.Tensor, band: torch.Tensor,
                block_t: int = banded_mixer.BLOCK_T,
                block_d: int = banded_mixer.BLOCK_D) -> torch.Tensor:
-    """Causal banded mix: ``y[t] = sum_s band[s] * x[t-s]``, zero history.
+    """Causal banded mix: ``y[t] = sum_s band[s] * x[t-s]``, zero history,
+    differentiable in ``x`` and ``band``.
 
     ``x``: (..., T, D); ``band``: (W,) shared or (W, D) depthwise.  The
     leading axes fold into the kernel's batch (grid) dimension; the tile
@@ -370,19 +432,9 @@ def banded_mix(x: torch.Tensor, band: torch.Tensor,
     and D are masked in the kernel, so nothing is padded.  A CPU tensor
     runs the plain version, a CUDA tensor launches the kernel or raises.
 
-    Forward only: the reference's ``custom_vjp`` (dx as flip-mix-flip
-    through the same kernel, dband as an einsum) becomes a
-    ``torch.autograd.Function`` with the training slice (ROADMAP Queue 1
-    item 9).
+    The backward is the reference's ``custom_vjp``: ``dx`` is the mix of
+    ``g`` flipped along T, flipped back — one more launch of the same
+    kernel (counted in ``banded_mixer_cuda_call.backward_launches``) —
+    and ``dband`` the f32 reduction ``sum_t g[t] * x[t-s]`` a tap.
     """
-    if x.ndim < 2:
-        raise ValueError(f"x must be (..., T, D), got {tuple(x.shape)}")
-    t_len, d = x.shape[-2], x.shape[-1]
-    xb = x.reshape((-1, t_len, d)).contiguous()
-    bt = min(block_t, max(t_len, 1))
-    chunk = banded_mixer.MAX_BATCH
-    outs = [banded_mixer.banded_mixer_cuda_call(xb[i:i + chunk], band, bt,
-                                                block_d)
-            for i in range(0, max(xb.shape[0], 1), chunk)]
-    out = outs[0] if len(outs) == 1 else torch.cat(outs)
-    return out.reshape(x.shape)
+    return _BandedMix.apply(x, band, block_t, block_d)

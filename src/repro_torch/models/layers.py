@@ -7,9 +7,10 @@ reference's distributions from an explicit ``torch.Generator`` (the
 values differ from JAX's; parity tests carry JAX's weights across with
 ``transformer.params_from_numpy``).
 
-The reference casts every weight to the compute dtype at each ``dense``
-call; the port's modules hold each weight in the dtype it is read in
-(cast once when the model is built), so ``dense`` casts nothing.
+``dense`` casts its weight to the input's dtype at each call, as the
+reference does: a trainable model holds f32 parameters and computes in
+bf16; the serving model holds each weight in the dtype it is read in
+(cast once when the model is built), where the cast is a no-op.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, device,
 
 
 def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return x @ w
+    return x @ w.to(x.dtype)
 
 
 def rms_norm_init(d: int, device) -> torch.Tensor:

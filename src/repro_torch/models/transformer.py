@@ -8,16 +8,21 @@ cycle.  Here :class:`Transformer` is an ``nn.Module`` holding one
 :class:`Layer` per layer in an ``nn.ModuleList`` (layer ``c*P + i`` is
 cycle ``c``, pattern position ``i``), and the scan is a loop over them.
 
-Each weight is held in the dtype it is read in — the compute dtype for
-every matrix, the embedding and the SSM's ``dt_bias``/``d_skip``; the
-parameter dtype for the norms, the conv band and ``a_log``, which the
-reference reads in f32 — so the reference's cast at every ``dense`` call
-happens once, when the model is built.  The module is for inference: its
-parameters do not require grad.
+Two builds.  The serving build (the default) holds each weight in the
+dtype it is read in — the compute dtype for every matrix, the embedding
+and the SSM's ``dt_bias``/``d_skip``; the parameter dtype for the norms,
+the conv band and ``a_log``, which the reference reads in f32 — so the
+reference's cast at every ``dense`` call is a no-op; its parameters do
+not require grad.  The trainable build (``trainable=True``) holds every
+leaf in ``cfg.param_dtype`` with ``requires_grad=True`` and casts at each
+use, as the reference does.  Trained (``mode="train"`` with grad
+enabled) with ``cfg.remat != "none"``, each of its layers runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
+cycle body).
 
 Ported layer kinds: ``hybrid`` and ``attn`` with a dense MLP.  RWKV,
 cross-attention, MoE, codebooks and image tokens raise
-``NotImplementedError`` (ROADMAP Queue 1 item 9).
+``NotImplementedError`` (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import kv_cache as kvc
@@ -37,7 +43,8 @@ from repro_torch.models.layers import (dense, dense_init, embed_init,
                                        rms_norm, rms_norm_init, rope)
 
 __all__ = ["build_pattern", "Layer", "Transformer", "init_params",
-           "params_from_numpy", "init_caches", "apply_layer", "dtype_of"]
+           "params_from_numpy", "params_to_numpy", "stack_by_cycle",
+           "assign_from_tree", "init_caches", "apply_layer", "dtype_of"]
 
 #: leaves the reference reads as f32 (``.astype(float32)``); every other
 #: leaf is read in the compute dtype
@@ -45,7 +52,7 @@ _PARAM_DTYPE_LEAVES = frozenset({"ln1", "ln2", "norm_attn", "norm_ssm",
                                  "final_norm", "q_norm", "k_norm",
                                  "conv_band", "a_log"})
 
-_NOT_PORTED = "not ported yet (ROADMAP.md Queue 1 item 9)"
+_NOT_PORTED = "not ported yet (ROADMAP.md Queue 1 item 5)"
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -87,12 +94,13 @@ def _check_ported(cfg: ModelConfig) -> list:
 # Modules
 # ---------------------------------------------------------------------------
 
-def _leaf(name: str, value: torch.Tensor, cfg: ModelConfig, device):
+def _leaf(name: str, value: torch.Tensor, cfg: ModelConfig, device,
+          trainable: bool):
     t = torch.as_tensor(value).to(device=device,
                                   dtype=dtype_of(cfg.param_dtype))
-    if name not in _PARAM_DTYPE_LEAVES:
+    if not trainable and name not in _PARAM_DTYPE_LEAVES:
         t = t.to(dtype_of(cfg.compute_dtype))
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t, requires_grad=trainable)
 
 
 class Layer(nn.Module):
@@ -101,7 +109,7 @@ class Layer(nn.Module):
     reference's leaf names."""
 
     def __init__(self, kind: str, window: Optional[int], tree: dict,
-                 cfg: ModelConfig, device):
+                 cfg: ModelConfig, device, trainable: bool = False):
         super().__init__()
         if kind not in ("attn", "hybrid"):
             raise NotImplementedError(f"layer kind {kind!r} is {_NOT_PORTED}")
@@ -109,31 +117,38 @@ class Layer(nn.Module):
         for name, value in tree.items():
             if isinstance(value, dict):
                 setattr(self, name, nn.ParameterDict(
-                    {k: _leaf(k, v, cfg, device) for k, v in value.items()}))
+                    {k: _leaf(k, v, cfg, device, trainable)
+                     for k, v in value.items()}))
             else:
-                setattr(self, name, _leaf(name, value, cfg, device))
+                setattr(self, name, _leaf(name, value, cfg, device,
+                                          trainable))
 
 
 class Transformer(nn.Module):
     """The decoder: ``embed``, ``layers`` (one :class:`Layer` each),
-    ``final_norm`` and ``lm_head`` (absent with tied embeddings)."""
+    ``final_norm`` and ``lm_head`` (absent with tied embeddings).
+    ``trainable``: f32 leaves that require grad (see the module's
+    docstring)."""
 
     def __init__(self, cfg: ModelConfig, embed, layers: Iterable[dict],
-                 final_norm, lm_head=None, *, device):
+                 final_norm, lm_head=None, *, device,
+                 trainable: bool = False):
         super().__init__()
         pattern = _check_ported(cfg)
         self.cfg = cfg
-        self.embed = _leaf("embed", embed, cfg, device)
+        self.embed = _leaf("embed", embed, cfg, device, trainable)
         self.layers = nn.ModuleList()
         for i, tree in enumerate(layers):   # one at a time: f32 leaves drop
             kind, window = pattern[i % len(pattern)]
-            self.layers.append(Layer(kind, window, tree, cfg, device))
+            self.layers.append(Layer(kind, window, tree, cfg, device,
+                                     trainable))
         if len(self.layers) != cfg.num_layers:
             raise ValueError(f"{len(self.layers)} layers given, config has "
                              f"{cfg.num_layers}")
-        self.final_norm = _leaf("final_norm", final_norm, cfg, device)
+        self.final_norm = _leaf("final_norm", final_norm, cfg, device,
+                                trainable)
         self.lm_head = None if cfg.tie_embeddings else \
-            _leaf("lm_head", lm_head, cfg, device)
+            _leaf("lm_head", lm_head, cfg, device, trainable)
 
     def forward(self, tokens: torch.Tensor, caches: Optional[list] = None,
                 mode: str = "train", start_pos: int = 0, head: bool = True):
@@ -151,14 +166,21 @@ class Transformer(nn.Module):
         if (caches is None) != (mode == "train"):
             raise ValueError(f"mode {mode!r} {'needs' if caches is None else 'takes no'}"
                              f" caches")
-        x = self.embed[tokens]
+        x = self.embed.to(dtype_of(cfg.compute_dtype))[tokens]
         positions = start_pos + torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = None if caches is None else []
+        remat = (mode == "train" and cfg.remat != "none"
+                 and torch.is_grad_enabled() and self.embed.requires_grad)
         for i, layer in enumerate(self.layers):
-            x, nc, a = apply_layer(layer, cfg, x, positions,
-                                   None if caches is None else caches[i],
-                                   mode)
+            if remat:
+                x, nc, a = checkpoint(apply_layer, layer, cfg, x, positions,
+                                      None, mode, use_reentrant=False,
+                                      preserve_rng_state=False)
+            else:
+                x, nc, a = apply_layer(layer, cfg, x, positions,
+                                       None if caches is None else caches[i],
+                                       mode)
             aux = aux + a
             if caches is not None:
                 new_caches.append(nc)
@@ -166,7 +188,7 @@ class Transformer(nn.Module):
         if not head:
             return x, new_caches, aux
         if cfg.tie_embeddings:
-            return x @ self.embed.T, new_caches, aux
+            return x @ self.embed.to(x.dtype).T, new_caches, aux
         return dense(self.lm_head, x), new_caches, aux
 
 
@@ -187,11 +209,12 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
     return p
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device) -> Transformer:
+def init_params(cfg: ModelConfig, generator: torch.Generator, device,
+                trainable: bool = False) -> Transformer:
     """A model with the reference's initial distributions, drawn on
     ``device`` from ``generator`` (a generator of that device).  No weight
-    file is read; the values differ from JAX's for the same seed."""
+    file is read; the values differ from JAX's for the same seed.
+    ``trainable``: the trainable build (f32 leaves that require grad)."""
     pattern = _check_ported(cfg)
     embed = embed_init(generator, cfg.vocab_size, cfg.d_model, device)
     lm_head = None if cfg.tie_embeddings else dense_init(
@@ -199,12 +222,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     layers = (_init_layer(generator, cfg, pattern[i % len(pattern)][0], device)
               for i in range(cfg.num_layers))
     return Transformer(cfg, embed, layers, rms_norm_init(cfg.d_model, device),
-                       lm_head, device=device)
+                       lm_head, device=device, trainable=trainable)
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> Transformer:
+def params_from_numpy(tree: dict, cfg: ModelConfig, device,
+                      trainable: bool = False) -> Transformer:
     """Load the reference's parameter pytree, as numpy
-    (``jax.tree.map(np.asarray, tf.init_params(key, cfg))``), into a model.
+    (``jax.tree.map(np.asarray, tf.init_params(key, cfg))``), into a model
+    (the trainable build with ``trainable``).
 
     The reference stacks each pattern position over cycles: layer
     ``c*P + i`` is ``tree["layers"][i][...][c]``.  ``dense`` weights keep
@@ -223,7 +248,75 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> Transformer:
     return Transformer(cfg, np.array(tree["embed"]), layers,
                        np.array(tree["final_norm"]),
                        None if cfg.tie_embeddings
-                       else np.array(tree["lm_head"]), device=device)
+                       else np.array(tree["lm_head"]), device=device,
+                       trainable=trainable)
+
+
+def _tree_index(name: str, period: int) -> tuple[tuple, Optional[int]]:
+    """(path in the reference's tree, cycle) of a parameter name of
+    :class:`Transformer`: ``layers.<c*P+i>.<a>.<b>`` is
+    ``("layers", i, a, b)`` at cycle ``c``; a top-level leaf has none."""
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return tuple(parts), None
+    layer = int(parts[1])
+    return ("layers", layer % period) + tuple(parts[2:]), layer // period
+
+
+def stack_by_cycle(cfg: ModelConfig, named: dict) -> dict:
+    """The reference's parameter tree of ``named`` — tensors keyed as
+    ``Transformer.named_parameters()`` names them (parameters, or moments
+    of them) — with each pattern position's leaves stacked over cycles."""
+    period = len(_check_ported(cfg))
+    layers = tuple({} for _ in range(period))    # the reference's tuple
+    tree: dict = {"layers": layers}
+    groups: dict = {}
+    for name, t in named.items():
+        path, cycle = _tree_index(name, period)
+        if cycle is None:
+            tree[path[0]] = t
+        else:
+            groups.setdefault(path, {})[cycle] = t
+    for path, by_cycle in groups.items():
+        node = layers[path[1]]
+        for k in path[2:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = torch.stack([by_cycle[c]
+                                      for c in sorted(by_cycle)])
+    return tree
+
+
+def assign_from_tree(cfg: ModelConfig, named: dict, tree: dict) -> None:
+    """Copy the reference's tree (stacked by cycle, as
+    :func:`stack_by_cycle` builds it) into the tensors of ``named`` in
+    place; a shape that differs raises."""
+    period = len(_check_ported(cfg))
+    with torch.no_grad():
+        for name, t in named.items():
+            path, cycle = _tree_index(name, period)
+            src = tree
+            for k in path:
+                src = src[k]
+            src = torch.as_tensor(src if cycle is None else src[cycle])
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: tree leaf of shape "
+                                 f"{tuple(src.shape)}, model {tuple(t.shape)}")
+            t.copy_(src)
+
+
+def params_to_numpy(model: Transformer) -> dict:
+    """The inverse of :func:`params_from_numpy`: the reference's parameter
+    tree (stacked by cycle) as numpy, in ``cfg.param_dtype``."""
+    dtype = dtype_of(model.cfg.param_dtype)
+    named = {n: p.detach().to(dtype) for n, p in model.named_parameters()}
+
+    def host(node):
+        if isinstance(node, dict):
+            return {k: host(v) for k, v in node.items()}
+        if isinstance(node, tuple):
+            return tuple(host(v) for v in node)
+        return node.cpu().numpy()
+    return host(stack_by_cycle(model.cfg, named))
 
 
 # ---------------------------------------------------------------------------

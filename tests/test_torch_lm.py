@@ -77,7 +77,7 @@ def test_configs_are_the_reference_values(getter):
     assert port == _port_cfg(ref)
     assert port.kernel_impl == "cuda"
     assert port.param_count() == ref.param_count()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         getattr(base, getter)("yi_6b")
     with pytest.raises(ValueError, match="kernel_impl"):
         dataclasses.replace(port, kernel_impl="pallas")
@@ -386,7 +386,7 @@ def test_unported_layer_kinds_raise():
     _, cfg = _smoke()
     for kw in (dict(rwkv_mode=True), dict(cross_attn=True),
                dict(moe=base.MoEConfig(4, 2, 32)), dict(num_codebooks=2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
             tf.init_params(dataclasses.replace(cfg, **kw),
                            torch.Generator().manual_seed(0), "cpu")
 
