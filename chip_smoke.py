@@ -132,12 +132,36 @@ slice:
 
 and phase 6's row for the banded mixer's backward (``dx`` at (2, 1024,
 3200) f32: 20 back-to-back backward calls, the launch alone, its byte
-bound, autograd through the plain version and through ``F.conv1d``).
+bound, autograd through the plain version and through ``F.conv1d``);
+then the other LM families, one model at a time:
+
+18. Qwen3-30B-A3B (4 x 1024, 16 tokens), RWKV-6 1.6B (4 x 1536, 32),
+   MusicGen-large (4 x 4 codebooks x 1024 with (4, 64, 2048)
+   conditioning, 32), Gemma-3 12B (4 x 1536, past its 1024 window, 32)
+   and LLaVA-NeXT-34B (1 x 576 image + 512 text tokens, 16) serve at full
+   width and depth in the bf16 serving build (seed 0; inputs
+   ``sample_from_specs(prefill_specs(...), seed=1)``) through
+   ``launch.serve.serve``, cold and warm: parameters, resident and peak
+   GiB, prefill ms and decode ms/token (host clock, synchronised),
+   finite logits of the expected shapes, warm ids equal to cold; MoE's
+   tokens per expert in the prefill and no dropped assignment; every
+   kernel counter zeroed just before the cold run and read just after
+   (no kernel is on these paths: all must read 0); one profiled warm
+   prefill and decode step split into matmuls, attention, MoE dispatch,
+   RWKV chunk loop and other, with the device's idle share.  A model
+   whose bf16 weights do not fit the card's free memory runs with its
+   depth cut to what fits, and says so;
+19. all nine of those architectures (the dense four, the MoE two,
+   RWKV-6, MusicGen, LLaVA) in f32 at full width, one pattern cycle deep
+   (at least two layers; Gemma-3's six): a 1040-token prefill (after a
+   VLM's image tokens) against a 1000-token prefill + 40 decode steps,
+   the last logits within phase 10's 1e-3 x max|logits|, no MoE
+   assignment dropped.
 
 Any kernel-vs-plain error over its tolerance (phases 3, 5, 6, 8 and 10),
 any main-path cell off its oracle, or any serve, server, chaos,
-rollout, calibration, gradient or training check that fails (phases
-9-17) fails the run.
+rollout, calibration, gradient, training or family check that fails
+(phases 9-19) fails the run.
 
 The last three lines are a JSON object ``{"kernels": [...]}`` (all four
 kernels; ``launches`` is the count of each kernel's own path — phase 4
@@ -145,13 +169,15 @@ for the step and sweep kernels — and the step and sweep rows give the
 counts of phases 4, 11, 12 (the seeded server), 13, 14 and 15 in
 ``launches_by_path``; the banded mixer's row counts phase 9's serve run,
 with phase 16's train launches beside it, and the ``banded_mixer_backward``
-row phase 16's backward launches), the card's ``name,
+row phase 16's backward launches; every row's ``launches_by_path`` also
+holds ``lm_families``, phase 18's launches of that kernel), the card's ``name,
 power.limit`` and ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository's sources beside this file, it exits non-zero and prints no
 result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -259,6 +285,22 @@ TRAIN_CHECK_REL_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "conv_band": 1e-3}
 # global layer: the pattern's period cut from 8 to 2)
 RECOVERY = dict(layers=2, period=2, batch=2, seq=256, steps=6, every=2,
                 faults=(3, 5))
+# phase 18: the other families served at full width and depth, bf16 (a
+# VLM's prompt_len counts its image tokens: 576 + 512 text tokens)
+FAMILY_SERVE = (
+    dict(arch="qwen3_moe_30b_a3b", batch=4, prompt_len=1024, gen_len=16),
+    dict(arch="rwkv6_1_6b", batch=4, prompt_len=1536, gen_len=32),
+    dict(arch="musicgen_large", batch=4, prompt_len=1024, gen_len=32),
+    dict(arch="gemma3_12b", batch=4, prompt_len=1536, gen_len=32),
+    dict(arch="llava_next_34b", batch=1, prompt_len=576 + 512, gen_len=16),
+)
+# phase 19: every other architecture, f32 at full width, depth one pattern
+# cycle: a prompt_len prefill against split + (prompt_len - split) decoded
+# text tokens
+FAMILY_ARCHS = ("yi_6b", "gemma_2b", "tinyllama_1_1b", "gemma3_12b",
+                "musicgen_large", "rwkv6_1_6b", "llava_next_34b",
+                "qwen3_moe_30b_a3b", "granite_moe_3b_a800m")
+FAMILY_CONSISTENCY = dict(batch=2, prompt_len=1040, split=1000, seed=2)
 
 
 def log(msg: str) -> None:
@@ -1231,10 +1273,10 @@ def time_lm_kernels(device, lm: dict, flash_launches: int,
 _MATMUL = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
 
 
-def _device_split(prof) -> dict:
+def _device_split(prof, span_names=("attention", "ssm_scan")) -> dict:
     """Device time (ms) of a profiled run split into the banded mixer
-    kernel, the ``attention`` and ``ssm_scan`` spans (every device op
-    their code launched), the remaining matmuls, and the rest."""
+    kernel, the spans ``span_names`` (every device op their code
+    launched), the remaining matmuls, and the rest."""
     from torch.autograd import DeviceType
 
     def kernels_under(ev):
@@ -1243,7 +1285,7 @@ def _device_split(prof) -> dict:
             yield from kernels_under(ch)
 
     total = banded = matmul = 0.0
-    spans = {"attention": 0.0, "ssm_scan": 0.0}
+    spans = dict.fromkeys(span_names, 0.0)
     in_span_matmul = 0.0
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation:
@@ -2459,6 +2501,288 @@ def time_banded_backward(device, train: dict, failures: list) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the other families serve at full width and depth
+# phase 19: their serving consistency at full width, f32
+# ---------------------------------------------------------------------------
+
+# GiB kept free beside a model's weights: its f32 draw of a layer, the
+# embedding and head (cast once the model is built), and the activations
+FAMILY_HEADROOM_GIB = 6.0
+
+
+def _kernel_counters() -> dict:
+    from repro_torch.kernels import banded_mixer as bm
+    from repro_torch.kernels import flash_attention as fa
+    return {**_stencil_counters(), "banded_mixer": bm.banded_mixer_cuda_call,
+            "flash_attention": fa.flash_attention_cuda}
+
+
+def _fitting_depth(cfg) -> int:
+    """The largest depth (a multiple of the pattern) whose bf16 serving
+    build fits in the card's free memory with ``FAMILY_HEADROOM_GIB``
+    beside it: the full depth when it fits."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import transformer as tf
+
+    free = torch.cuda.mem_get_info()[0] - FAMILY_HEADROOM_GIB * 2**30
+    whole = cfg.param_count() * 2
+    if whole <= free:
+        return cfg.num_layers
+    outer = dataclasses.replace(cfg, num_layers=0).param_count() * 2
+    period = len(tf.build_pattern(cfg))
+    fits = int((free - outer) // ((whole - outer) / cfg.num_layers))
+    return max(period, fits // period * period)
+
+
+def _moe_recorder(seen: list):
+    """Register a dispatch observer that keeps every group's tokens per
+    expert and dropped assignments; returns the function that removes
+    it."""
+    from repro_torch.models import moe
+
+    def observe(counts, dropped):
+        seen.append((counts.detach().clone(), dropped.detach().clone()))
+    moe.DISPATCH_OBSERVERS.append(observe)
+    return lambda: moe.DISPATCH_OBSERVERS.remove(observe)
+
+
+def serve_family(device, failures: list, case: dict) -> dict:
+    """Phase 18, one architecture: build it at full width (full depth
+    unless the card cannot hold it: the cut is printed) in the bf16
+    serving build from seed 0, serve ``prefill_specs`` inputs (seed 1)
+    through ``launch.serve.serve`` cold and warm, and profile one warm
+    prefill and one decode step.  Every kernel counter is zeroed just
+    before the cold run and read just after: no kernel is on these
+    paths."""
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.input_specs import prefill_specs, sample_from_specs
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.serve_step import (make_decode_step, make_prefill,
+                                              pick)
+
+    full = get_config(case["arch"])
+    torch.cuda.empty_cache()
+    depth = _fitting_depth(full)
+    cfg = dataclasses.replace(full, num_layers=depth)
+    cut = "" if depth == full.num_layers else \
+        f" DEPTH CUT {full.num_layers} -> {depth} layers to fit the card"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tf.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    resident = torch.cuda.memory_allocated()
+    build_peak = torch.cuda.max_memory_allocated()
+    log(f"  {cfg.name}: {n_params} parameters (param_count() "
+        f"{cfg.param_count()}) built on the card in {build_s:.1f} s, "
+        f"{cfg.num_layers} layers{cut}, resident {resident / 2**30:.2f} "
+        f"GiB, build peak {build_peak / 2**30:.2f} GiB")
+    inputs = {k: v.to(device) for k, v in sample_from_specs(
+        prefill_specs(cfg, case["batch"], case["prompt_len"]), cfg,
+        seed=1).items()}
+    kw = {k: inputs[k] for k in ("patch_embeds", "cond") if k in inputs}
+    gen_len = case["gen_len"]
+    counters = _kernel_counters()
+    moe_seen: list = []
+    remove = _moe_recorder(moe_seen) if cfg.moe is not None else None
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0                          # zeroed just before the path
+    try:
+        cold = serve(model, inputs["tokens"], gen_len, **kw)
+    finally:
+        if remove is not None:
+            remove()
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    warm = serve(model, inputs["tokens"], gen_len, **kw)
+
+    b, k = case["batch"], cfg.num_codebooks
+    positions = inputs["tokens"].shape[-1] + (
+        cfg.num_image_tokens if "patch_embeds" in kw else 0)
+    want_ids = (b, k, gen_len) if k else (b, gen_len)
+    want_logits = (b, k, cfg.vocab_size) if k else (b, cfg.vocab_size)
+    finite = all(bool(torch.isfinite(l).all()) for l in cold["logits"])
+    shapes_ok = (tuple(cold["ids"].shape) == want_ids
+                 and tuple(cold["logits"][0].shape) == want_logits
+                 and cold["state"].length == positions + gen_len)
+    same = bool(torch.equal(cold["ids"], warm["ids"]))
+    no_kernel = not any(launches.values())
+    ok = finite and shapes_ok and same and no_kernel
+    moe_note = ""
+    if cfg.moe is not None:
+        prefill_counts = torch.stack([c for c, _ in moe_seen[:cfg.num_layers]])
+        dropped = int(sum(int(d) for _, d in moe_seen))
+        tokens = b * inputs["tokens"].shape[-1]
+        count_ok = bool((prefill_counts.sum(-1)
+                         == tokens * cfg.moe.top_k).all())
+        ok = ok and dropped == 0 and count_ok and \
+            len(moe_seen) == cfg.num_layers * (1 + gen_len)
+        moe_note = (f"; prefill tokens per expert min "
+                    f"{int(prefill_counts.min())} max "
+                    f"{int(prefill_counts.max())} (mean "
+                    f"{tokens * cfg.moe.top_k / cfg.moe.num_experts:.0f}), "
+                    f"dropped assignments {dropped} over prefill and decode")
+    for run, out in (("cold", cold), ("warm", warm)):
+        log(f"  serve {run}: prefill {b}x{positions} "
+            f"{out['prefill_ms']:.1f} ms, decode {gen_len} tokens "
+            f"{out['decode_ms']:.1f} ms ({out['decode_ms'] / gen_len:.2f} "
+            f"ms/token) (host clock, synchronised)")
+    log(f"  finite logits {finite}, shapes ok {shapes_ok}, warm ids == cold "
+        f"ids {same}, kernel launches {launches}, peak memory "
+        f"{peak / 2**30:.2f} GiB{moe_note}{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append(f"serve {cfg.name}: finite={finite} shapes="
+                        f"{shapes_ok} same={same} launches={launches}"
+                        f"{moe_note}")
+
+    prefill = make_prefill(cfg, positions + gen_len + 1)
+    decode = make_decode_step(cfg)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    spans = ("attention", "moe_dispatch", "rwkv_chunks")
+    splits = {}
+    with torch.no_grad():
+        with profile(activities=acts) as p_prefill:
+            last, state = prefill(model, inputs["tokens"], **kw)
+            torch.cuda.synchronize()
+        tok = pick(cfg, last)
+        last, state = decode(model, state, tok, cond=kw.get("cond"))
+        torch.cuda.synchronize()
+        with profile(activities=acts) as p_decode:
+            decode(model, state, pick(cfg, last), cond=kw.get("cond"))
+            torch.cuda.synchronize()
+    for stage, prof, wall in (
+            ("prefill", p_prefill, warm["prefill_ms"]),
+            ("decode step", p_decode, warm["decode_ms"] / gen_len)):
+        split = _device_split(prof, spans)
+        n_kernels = sum(1 for ev in prof.events()
+                        if ev.device_type == DeviceType.CUDA
+                        and not ev.is_user_annotation)
+        if split["total"] == 0.0:
+            log(f"  {stage}: warm {wall:.3f} ms (host clock); the profiler "
+                f"saw no device time: breakdown not measured")
+            continue
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in split.items()
+                          if k not in ("total", "banded_mixer"))
+        idle = max(0.0, 1 - split["total"] / wall)
+        splits[stage] = dict(split, wall=wall, idle=idle, kernels=n_kernels)
+        log(f"  {stage}: warm {wall:.3f} ms (host clock); {n_kernels} device "
+            f"kernels, device {split['total']:.3f} ms = {parts} ms; device "
+            f"idle {idle:.1%} of the warm run")
+    result = {"arch": case["arch"], "layers": cfg.num_layers,
+              "launches": launches, "peak_gib": peak / 2**30,
+              "prefill_ms": warm["prefill_ms"],
+              "decode_ms_per_token": warm["decode_ms"] / gen_len,
+              "splits": splits}
+    del model, cold, warm, last, state, inputs, kw, p_prefill, p_decode
+    torch.cuda.empty_cache()
+    return result
+
+
+def serve_families(device, failures: list) -> dict:
+    """Phase 18: every case of ``FAMILY_SERVE``, one model at a time.
+    Returns each kernel's launches summed over the phase."""
+    total: dict = {}
+    for case in FAMILY_SERVE:
+        log(f"  -- {case['arch']}: batch {case['batch']} x "
+            f"{case['prompt_len']}, {case['gen_len']} tokens generated")
+        out = serve_family(device, failures, case)
+        for k, v in out["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def family_consistency(device, failures: list, arch: str) -> None:
+    """Phase 19, one architecture: full width, f32 compute, depth cut to
+    one pattern cycle (at least two layers); the last logits of a
+    ``prompt_len``-token prefill against a ``split``-token prefill
+    followed by decode steps, both with ``max_len`` one past the prompt's
+    positions; 1e-3 x max|logits|, phase 10's bar."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.input_specs import prefill_specs, sample_from_specs
+    from repro_torch.models import kv_cache as kvc
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.serve_step import make_decode_step, make_prefill
+
+    c = FAMILY_CONSISTENCY
+    full = get_config(arch)
+    depth = max(len(tf.build_pattern(full)), 2)
+    cfg = dataclasses.replace(full, compute_dtype="float32",
+                              num_layers=depth)
+    torch.cuda.empty_cache()
+    model = tf.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    inputs = {k: v.to(device) for k, v in sample_from_specs(
+        prefill_specs(cfg, c["batch"], c["prompt_len"] + cfg.num_image_tokens),
+        cfg, seed=c["seed"]).items()}
+    kw = {k: inputs[k] for k in ("patch_embeds", "cond") if k in inputs}
+    tokens = inputs["tokens"]
+    positions = tokens.shape[-1] + cfg.num_image_tokens
+    prefill = make_prefill(cfg, positions + 1)
+    decode = make_decode_step(cfg)
+    moe_seen: list = []
+    remove = _moe_recorder(moe_seen) if cfg.moe is not None else None
+    try:
+        with torch.no_grad():
+            whole, _ = prefill(model, tokens, **kw)
+            last, state = prefill(model, tokens[..., :c["split"]], **kw)
+            for t in range(c["split"], tokens.shape[-1]):
+                last, state = decode(model, state, tokens[..., t:t + 1],
+                                     cond=kw.get("cond"))
+    finally:
+        if remove is not None:
+            remove()
+    rings = sum(isinstance(cache, kvc.RingKVCache)
+                for cache in state.caches)
+    dropped = sum(int(d) for _, d in moe_seen)
+    scale = whole.abs().max().item()
+    err = (last - whole).abs().max().item()
+    tol = CONSISTENCY_REL_TOL * scale
+    ok = err <= tol and bool(torch.isfinite(whole).all()) and dropped == 0 \
+        and state.length == positions
+    log(f"  {cfg.name} ({depth} layers, f32, batch {c['batch']}): prefill "
+        f"{positions} vs prefill {positions - tokens.shape[-1] + c['split']}"
+        f" + decode {tokens.shape[-1] - c['split']} ({rings} ring caches"
+        f"{', dropped MoE assignments %d' % dropped if cfg.moe else ''}): "
+        f"max|diff| of the last logits {err:.3e} (tol {tol:.3e} = "
+        f"{CONSISTENCY_REL_TOL:g} x max|logits| {scale:.3f})"
+        f"{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append(f"{cfg.name} consistency: {err:.3e} > {tol:.3e} "
+                        f"(dropped={dropped}, length={state.length})")
+    del model, whole, last, state, inputs, kw
+    torch.cuda.empty_cache()
+
+
+def lm_families(device, failures: list) -> dict:
+    """Phases 18-19; returns phase 18's kernel launches by kernel."""
+    t0 = time.perf_counter()
+    log("phase 18: the other families serve at full width and depth, bf16: "
+        + "; ".join(f"{c['arch']} {c['batch']} x {c['prompt_len']}, "
+                    f"{c['gen_len']} tokens" for c in FAMILY_SERVE))
+    launches = serve_families(device, failures)
+    log("phase 19: prefill against prefill + decode, f32, full width, one "
+        "pattern cycle deep, for every other architecture")
+    for arch in FAMILY_ARCHS:
+        family_consistency(device, failures, arch)
+    log(f"  phases 18-19 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2573,7 +2897,6 @@ def main() -> int:
             row["launches_by_path"] = {
                 "serve": serve_launches, "train": train["launches"],
                 "train_backward": train["backward_launches"]}
-    for row in rows:
         if row["name"] in main_run["launches"]:
             by_path = {"main": main_run["launches"][row["name"]],
                        "stencil_server": served["launches"][row["name"]],
@@ -2589,6 +2912,15 @@ def main() -> int:
                     and by_path["rollouts"] <= 0):
                 failures.append(f"the serving paths never launched the "
                                 f"{row['name']} kernel")
+    # phase 18's largest model fills most of the card: drop what earlier
+    # phases kept there
+    del main_run, served, chaotic, rolled, calibrated, vjp, train
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = lm_families(device, failures)
+    for row in rows:
+        row.setdefault("launches_by_path", {})["lm_families"] = \
+            families.get(row["name"], 0)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     if failures:

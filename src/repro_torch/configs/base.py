@@ -1,9 +1,10 @@
 """Config system of the port's LM stack: architecture + shape cells.
 
 A copy of the reference's config dataclasses (``repro.configs.base``), so
-the port runs where JAX is not installed.  Every ported architecture is a
-module ``repro_torch.configs.<id>`` exporting ``CONFIG`` (full published
-dims) and ``SMOKE`` (reduced same-family config for CPU tests).
+the port runs where JAX is not installed.  Every architecture of
+``ARCH_IDS`` is a module ``repro_torch.configs.<id>`` exporting ``CONFIG``
+(full published dims) and ``SMOKE`` (reduced same-family config for CPU
+tests).
 
 ``kernel_impl`` names the path of the SSM's short causal conv: ``"cuda"``
 runs the banded-mixer kernel (``kernels.ops.banded_mix``; its plain
@@ -19,14 +20,11 @@ from typing import Optional
 
 __all__ = [
     "MoEConfig", "SSMConfig", "ModelConfig", "ShapeCell", "SHAPE_CELLS",
-    "KERNEL_IMPLS", "PORTED_ARCHS", "get_config", "get_smoke_config",
+    "KERNEL_IMPLS", "ARCH_IDS", "LONG_CONTEXT_ARCHS", "cells_for",
+    "get_config", "get_smoke_config",
 ]
 
 KERNEL_IMPLS = ("cuda", "ref")
-
-#: architectures whose whole serving path the port runs; the others wait
-#: for ROADMAP Queue 1 item 5 (rwkv6, MoE, cross-attention, codebooks, VLM)
-PORTED_ARCHS = ("hymba_1_5b",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,12 +139,28 @@ SHAPE_CELLS = {
 }
 
 
+ARCH_IDS = [
+    "yi_6b", "gemma_2b", "tinyllama_1_1b", "gemma3_12b", "musicgen_large",
+    "rwkv6_1_6b", "llava_next_34b", "qwen3_moe_30b_a3b",
+    "granite_moe_3b_a800m", "hymba_1_5b",
+]
+
+# long_500k requires sub-quadratic attention (DESIGN.md §4).
+LONG_CONTEXT_ARCHS = {"rwkv6_1_6b", "hymba_1_5b", "gemma3_12b"}
+
+
+def cells_for(arch: str) -> list[str]:
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch in LONG_CONTEXT_ARCHS:
+        cells.append("long_500k")
+    return cells
+
+
 def _load(arch: str):
     arch = arch.replace("-", "_").replace(".", "_")
-    if arch not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet (ported: "
-            f"{', '.join(PORTED_ARCHS)}); see ROADMAP.md Queue 1 item 5")
+    if arch not in ARCH_IDS:
+        raise ValueError(f"unknown architecture {arch!r}; one of "
+                         f"{', '.join(ARCH_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

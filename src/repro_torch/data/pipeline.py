@@ -7,6 +7,13 @@ file (file-backed), so a restart at step N regenerates exactly the stream
 a failed worker would have seen — no iterator state in checkpoints beyond
 the step counter.  Batches are numpy int32 arrays, equal to the
 reference's; the train step moves them to its device.
+
+A config with image tokens or cross-attention also gets its stubbed
+frontend's output, as serving does: f32 ``patch_embeds`` (B, N,
+vision_dim) or ``cond`` (B, L, cond_dim), standard normal, drawn from a
+stream of their own (``SeedSequence([seed, i, s, 1])``), so the token
+stream stays the reference's.  The reference's pipeline has no such
+inputs (its trainer runs MusicGen without its conditioning).
 """
 from __future__ import annotations
 
@@ -31,6 +38,10 @@ class DataConfig:
     seed: int = 0
     path: Optional[str] = None       # file-backed when set
     num_codebooks: int = 0
+    num_image_tokens: int = 0        # patch_embeds (B, N, vision_dim)
+    vision_dim: int = 0
+    cond_len: int = 0                # cond (B, cond_len, cond_dim)
+    cond_dim: int = 0
 
     @property
     def shard_batch(self) -> int:
@@ -38,6 +49,22 @@ class DataConfig:
             raise ValueError(f"global_batch {self.global_batch} is not a "
                              f"multiple of num_shards {self.num_shards}")
         return self.global_batch // self.num_shards
+
+
+def _with_stubs(cfg: DataConfig, step: int, batch: dict) -> dict:
+    """``batch`` with the stubbed frontends' inputs the config asks for."""
+    if not (cfg.num_image_tokens or cfg.cond_len):
+        return batch
+    rng = np.random.default_rng(
+        np.random.SeedSequence([cfg.seed, step, cfg.shard_id, 1]))
+    b = cfg.shard_batch
+    if cfg.num_image_tokens:
+        batch["patch_embeds"] = rng.normal(size=(
+            b, cfg.num_image_tokens, cfg.vision_dim)).astype(np.float32)
+    if cfg.cond_len:
+        batch["cond"] = rng.normal(
+            size=(b, cfg.cond_len, cfg.cond_dim)).astype(np.float32)
+    return batch
 
 
 class SyntheticLM:
@@ -66,8 +93,9 @@ class SyntheticLM:
         noise = rng.random(shape) < 0.1
         seq = np.where(noise, rng.integers(0, cfg.vocab_size, size=shape),
                        seq)
-        return {"tokens": seq[..., :-1].astype(np.int32),
-                "labels": seq[..., 1:].astype(np.int32)}
+        return _with_stubs(cfg, step,
+                           {"tokens": seq[..., :-1].astype(np.int32),
+                            "labels": seq[..., 1:].astype(np.int32)})
 
     def __iter__(self) -> Iterator[dict]:
         step = 0
@@ -95,8 +123,9 @@ class FileBackedLM:
         flat = np.asarray(self.tokens[start: start + self.tokens_per_batch])
         seq = flat.reshape(cfg.shard_batch, cfg.seq_len + 1).astype(np.int32)
         seq = np.clip(seq, 0, cfg.vocab_size - 1)
-        return {"tokens": np.ascontiguousarray(seq[:, :-1]),
-                "labels": np.ascontiguousarray(seq[:, 1:])}
+        return _with_stubs(cfg, step,
+                           {"tokens": np.ascontiguousarray(seq[:, :-1]),
+                            "labels": np.ascontiguousarray(seq[:, 1:])})
 
     def __iter__(self):
         step = 0

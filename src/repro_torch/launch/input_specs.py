@@ -1,7 +1,8 @@
 """Input specifications of the LM stack and seeded samples of them.
 
-``train_batch_specs`` / ``prefill_specs`` describe a batch as
-:class:`TensorSpec` (shape + torch dtype, nothing allocated);
+``train_batch_specs`` / ``prefill_specs`` / ``decode_specs`` (and
+``specs_for_cell``) describe a batch as :class:`TensorSpec` (shape +
+torch dtype, nothing allocated);
 ``sample_from_specs`` draws concrete tensors for them from
 ``np.random.default_rng(seed)`` in the reference's order and with the
 reference's calls, so both packages draw identical token ids from one
@@ -16,10 +17,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCell
 
 __all__ = ["TensorSpec", "train_batch_specs", "prefill_specs",
-           "sample_from_specs"]
+           "decode_specs", "specs_for_cell", "sample_from_specs"]
 
 TOKEN_DTYPE = torch.int32
 
@@ -58,6 +59,28 @@ def prefill_specs(cfg: ModelConfig, batch: int, seq: int) -> dict:
     specs = train_batch_specs(cfg, batch, seq)
     specs.pop("labels")
     return specs
+
+
+def decode_specs(cfg: ModelConfig, batch: int) -> dict:
+    """{token[, cond]} specs of one decode step: (B, 1) ids, or
+    (B, K, 1) with codebooks."""
+    specs = {}
+    if cfg.num_codebooks:
+        specs["token"] = TensorSpec((batch, cfg.num_codebooks, 1), TOKEN_DTYPE)
+    else:
+        specs["token"] = TensorSpec((batch, 1), TOKEN_DTYPE)
+    if cfg.cross_attn:
+        specs["cond"] = TensorSpec((batch, cfg.cond_len, cfg.cond_dim),
+                                   _float_dtype(cfg))
+    return specs
+
+
+def specs_for_cell(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    if cell.kind == "train":
+        return train_batch_specs(cfg, cell.global_batch, cell.seq_len)
+    if cell.kind == "prefill":
+        return prefill_specs(cfg, cell.global_batch, cell.seq_len)
+    return decode_specs(cfg, cell.global_batch)
 
 
 def sample_from_specs(specs: dict, cfg: ModelConfig, seed: int = 0) -> dict:

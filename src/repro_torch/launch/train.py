@@ -8,7 +8,10 @@ card unless ``--device cpu`` is given, and raises when asked for the card
 without one.  The model is drawn from a ``torch.Generator`` seeded with
 0 (no weight file); the data is ``SyntheticLM`` (seed 0) unless
 ``--data-path`` names a flat uint16 token file.  ``--mesh`` belongs to
-the distributed slice (ROADMAP Queue 1 item 4) and raises.
+the distributed slice (ROADMAP Queue 1 item 4) and raises.  Any
+``--arch`` of ``configs.base.ARCH_IDS``: ``--seq`` counts text tokens (a
+VLM's image tokens come on top), and a VLM's patch embeddings and a
+cross-attention model's conditioning are the pipeline's stubs.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import argparse
 import os
 import tempfile
 
-from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.configs.base import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.engine import resolve_device
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.optim.adamw import adamw, cosine_schedule
@@ -27,7 +30,8 @@ __all__ = ["main"]
 
 def main(argv=None) -> Trainer:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help=f"one of {', '.join(ARCH_IDS)}")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -58,7 +62,11 @@ def main(argv=None) -> Trainer:
           f"device={device}")
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                       global_batch=args.batch, seed=0, path=args.data_path,
-                      num_codebooks=cfg.num_codebooks)
+                      num_codebooks=cfg.num_codebooks,
+                      num_image_tokens=cfg.num_image_tokens,
+                      vision_dim=cfg.vision_dim,
+                      cond_len=cfg.cond_len if cfg.cross_attn else 0,
+                      cond_dim=cfg.cond_dim)
     opt = adamw(lr=cosine_schedule(args.lr,
                                    warmup=min(20, args.steps // 5 + 1),
                                    total=args.steps))

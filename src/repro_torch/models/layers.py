@@ -66,11 +66,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4):
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
 
 
-def init_attention(gen: torch.Generator, cfg, device) -> dict:
+def init_attention(gen: torch.Generator, cfg, device,
+                   cross: bool = False) -> dict:
+    """Self-attention weights; with ``cross``, ``wk``/``wv`` read the
+    conditioning (``cfg.cond_dim`` wide when set)."""
     d, h, kvh, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kv_in = cfg.cond_dim if cross and cfg.cond_dim else d
     p = {"wq": dense_init(gen, d, h * dh, device),
-         "wk": dense_init(gen, d, kvh * dh, device),
-         "wv": dense_init(gen, d, kvh * dh, device),
+         "wk": dense_init(gen, kv_in, kvh * dh, device),
+         "wv": dense_init(gen, kv_in, kvh * dh, device),
          "wo": dense_init(gen, h * dh, d, device,
                           scale=1.0 / math.sqrt(h * dh))}
     if cfg.qk_norm:

@@ -1,0 +1,154 @@
+"""Mixture-of-Experts FFN: top-k routing with sort-based capacity dispatch.
+
+The reference's ``repro.models.moe`` on one device: the router runs in
+f32, each token's top-k gates are renormalised, the Switch load-balance
+loss is returned beside the output, and position-in-expert comes from a
+stable sort over the token-major ``(T*k,)`` assignment list.  An
+assignment whose position reaches the capacity ``C`` drops
+(``ceil(T*k/E * capacity_factor)`` in train mode; ``dropless`` sets
+``C = T``, the exact bound, for serving).  The expert FFNs run as three
+batched products over the expert axis (``torch.bmm``), as the
+reference's einsums over its ``(E, C, D)`` buffer do.
+
+One departure in size, not in value: the buffer holds
+``min(C, max tokens of any expert)`` rows (one host read per dispatch
+group).  A row past an expert's count is zero in the reference and never
+gathered, so the output is the same; dropless serving would otherwise
+build ``(E, T, D)`` and do ``E/k`` times the useful expert work.
+
+The reference's expert-parallel ``shard_map`` branch belongs to the
+distributed slice (ROADMAP Queue 1 item 4); the port has no mesh, so it
+has no such branch.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from repro_torch.models.layers import dense_init
+
+__all__ = ["MoEOut", "Routing", "init_moe", "moe_ffn", "route",
+           "DISPATCH_OBSERVERS"]
+
+#: callables ``f(counts, dropped)``, each told every dispatch group's
+#: tokens per expert (an ``(E,)`` tensor) and its dropped assignments (a
+#: 0-d tensor); whoever appends one removes it after
+DISPATCH_OBSERVERS: list = []
+
+
+class MoEOut(NamedTuple):
+    y: torch.Tensor
+    aux_loss: torch.Tensor
+
+
+class Routing(NamedTuple):
+    """One dispatch group's routing, in the reference's token-major
+    ``(T*k,)`` assignment order (assignment ``t*k + j`` is token ``t``'s
+    ``j``-th choice)."""
+    probs: torch.Tensor      # (T, E) f32
+    gates: torch.Tensor      # (T, k) f32, renormalised
+    experts: torch.Tensor    # (T, k) int64
+    pos: torch.Tensor        # (T*k,) position in its expert's queue
+    keep: torch.Tensor       # (T*k,) bool: pos < cap
+    counts: torch.Tensor     # (E,) assignments per expert
+    cap: int
+
+
+def init_moe(gen: torch.Generator, d: int, mcfg, device) -> dict:
+    """The reference's initial distributions, drawn from ``gen`` (f32)."""
+    e, dff = mcfg.num_experts, mcfg.d_ff_expert
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32) * scale
+    return {"router": dense_init(gen, d, e, device),
+            "wi_gate": normal((e, d, dff), 1.0 / math.sqrt(d)),
+            "wi_up": normal((e, d, dff), 1.0 / math.sqrt(d)),
+            "wo": normal((e, dff, d), 1.0 / math.sqrt(dff))}
+
+
+def _capacity(t: int, mcfg, dropless: bool) -> int:
+    if dropless:
+        return t        # exact bound: a token's top-k experts are distinct
+    cap = math.ceil(t * mcfg.top_k / mcfg.num_experts * mcfg.capacity_factor)
+    return max(min(cap, t * mcfg.top_k), 1)
+
+
+def route(xt: torch.Tensor, router: torch.Tensor, mcfg,
+          dropless: bool) -> Routing:
+    """Top-k routing of one group's tokens ``xt`` (T, D) and each
+    assignment's position in its expert's queue."""
+    t = xt.shape[0]
+    e, k = mcfg.num_experts, mcfg.top_k
+    logits = xt.to(torch.float32) @ router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    gates, experts = torch.topk(probs, k, dim=-1)
+    gates = gates / torch.sum(gates, dim=-1, keepdim=True)
+    cap = _capacity(t, mcfg, dropless)
+    flat_expert = experts.reshape(-1)
+    order = torch.argsort(flat_expert, stable=True)
+    counts = torch.bincount(flat_expert, minlength=e)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_sorted = torch.arange(t * k, device=xt.device) - \
+        starts[flat_expert[order]]
+    pos = torch.empty_like(pos_sorted)
+    pos[order] = pos_sorted
+    return Routing(probs=probs, gates=gates, experts=experts, pos=pos,
+                   keep=pos < cap, counts=counts, cap=cap)
+
+
+def _moe_group(xt: torch.Tensor, p, mcfg, act: str, dropless: bool):
+    """One dispatch group: (T, D) -> ((T, D), aux)."""
+    t, d = xt.shape
+    e, k = mcfg.num_experts, mcfg.top_k
+    with record_function("moe_dispatch"):
+        r = route(xt, p["router"], mcfg, dropless)
+        # load-balance aux loss (Switch): E * sum_e f_e * p_e
+        density = torch.mean(F.one_hot(r.experts[:, 0], e).to(torch.float32),
+                             dim=0)
+        aux = e * torch.sum(density * torch.mean(r.probs, dim=0)) \
+            * mcfg.aux_loss_weight
+        for observe in DISPATCH_OBSERVERS:
+            observe(r.counts, torch.sum(~r.keep))
+        rows = min(r.cap, int(r.counts.max()))      # one host read
+        flat_expert = r.experts.reshape(-1)
+        # a dropped assignment writes the spare row ``rows``, never read
+        slot = torch.where(r.keep, r.pos, rows)
+        buf = xt.new_zeros((e, rows + 1, d))
+        buf = buf.index_put((flat_expert, slot),
+                            xt.repeat_interleave(k, dim=0))[:, :rows]
+    dtype = xt.dtype
+    g = torch.bmm(buf, p["wi_gate"].to(dtype))
+    u = torch.bmm(buf, p["wi_up"].to(dtype))
+    a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+    eo = torch.bmm(a * u, p["wo"].to(dtype))               # (E, rows, D)
+    with record_function("moe_dispatch"):
+        out = eo[flat_expert, torch.clamp(slot, max=rows - 1)]   # (T*k, D)
+        out = torch.where(r.keep[:, None], out, 0.0) \
+            * r.gates.reshape(-1, 1).to(dtype)
+        y = torch.sum(out.reshape(t, k, d), dim=1)
+    return y, aux.to(torch.float32)
+
+
+def moe_ffn(p, x: torch.Tensor, mcfg, act: str = "silu",
+            dropless: bool = False) -> MoEOut:
+    """x: (B, S, D) -> (B, S, D). Top-k routed expert SwiGLU (GeGLU with
+    ``act="gelu"``).
+
+    ``dropless=True`` sets capacity to the exact upper bound (the serving
+    path: decode agrees with prefill when nothing drops there either).
+    ``mcfg.groups > 1`` dispatches per token group (when it divides
+    ``B*S``); the aux loss is the groups' mean.
+    """
+    b, s, d = x.shape
+    t_all = b * s
+    g = mcfg.groups if (mcfg.groups and t_all % mcfg.groups == 0) else 1
+    xg = x.reshape(g, t_all // g, d)
+    ys, auxs = zip(*(_moe_group(xg[i], p, mcfg, act, dropless)
+                     for i in range(g)))
+    return MoEOut(y=torch.stack(ys).reshape(b, s, d),
+                  aux_loss=torch.mean(torch.stack(auxs)))

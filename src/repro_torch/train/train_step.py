@@ -94,15 +94,28 @@ def load_state_tree(state: TrainState, tree: dict) -> TrainState:
 
 
 def make_loss_fn(cfg: ModelConfig, ce_chunk: int = 512):
-    """(model, batch) -> (loss, aux). batch: {tokens, labels[, mask]}, on
-    the model's device."""
+    """(model, batch) -> (loss, aux). batch: {tokens, labels[, mask,
+    patch_embeds, cond]}, on the model's device.  Codebook models average
+    the CE of their K heads; image positions carry no loss; MoE's aux
+    loss is added."""
 
     def loss_fn(model: tf.Transformer, batch: dict):
-        hidden, _, aux = model(batch["tokens"], mode="train", head=False)
+        hidden, _, aux = model(batch["tokens"], mode="train", head=False,
+                               patch_embeds=batch.get("patch_embeds"),
+                               cond=batch.get("cond"))
         head_w = model.embed if cfg.tie_embeddings else model.lm_head
-        ce, _ = chunked_cross_entropy(hidden, head_w, batch["labels"],
-                                      mask=batch.get("mask"), chunk=ce_chunk,
-                                      transpose_head=cfg.tie_embeddings)
+        labels, mask = batch["labels"], batch.get("mask")
+        if cfg.num_codebooks:          # one CE per codebook head (K, D, V)
+            ce = sum(chunked_cross_entropy(hidden, head_w[i], labels[:, i],
+                                           mask=mask, chunk=ce_chunk)[0]
+                     for i in range(cfg.num_codebooks)) / cfg.num_codebooks
+        else:
+            if cfg.num_image_tokens:
+                # image positions are inputs only: no next-token loss there
+                hidden = hidden[:, cfg.num_image_tokens:]
+            ce, _ = chunked_cross_entropy(hidden, head_w, labels, mask=mask,
+                                          chunk=ce_chunk,
+                                          transpose_head=cfg.tie_embeddings)
         return ce + aux, aux
 
     return loss_fn

@@ -32,6 +32,8 @@ from repro_torch.launch import input_specs, serve
 from repro_torch.models import attention_chunked as ac
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models import layers
+from repro_torch.models import moe
+from repro_torch.models import rwkv6
 from repro_torch.models import ssm
 from repro_torch.models import transformer as tf
 from repro_torch.train import serve_step
@@ -77,8 +79,9 @@ def test_configs_are_the_reference_values(getter):
     assert port == _port_cfg(ref)
     assert port.kernel_impl == "cuda"
     assert port.param_count() == ref.param_count()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        getattr(base, getter)("yi_6b")
+    for arch in ref_base.ARCH_IDS:         # every architecture loads
+        assert getattr(base, getter)(arch) == \
+            _port_cfg(getattr(ref_base, getter)(arch))
     with pytest.raises(ValueError, match="kernel_impl"):
         dataclasses.replace(port, kernel_impl="pallas")
 
@@ -374,24 +377,19 @@ def test_serve_launcher_runs_on_the_cpu(capsys):
 
 
 def test_serve_launcher_defaults_to_the_card():
-    argv = ["--arch", ARCH, "--smoke", "--gen-len", "2"]
-    if torch.cuda.is_available():
-        assert serve.main(argv)["ids"].device.type == "cuda"
-        return
-    with pytest.raises(RuntimeError, match="cuda"):
-        serve.main(argv)
+    """Hymba, a codebook config and an image-token config."""
+    for arch in (ARCH, "musicgen_large", "llava_next_34b"):
+        argv = ["--arch", arch, "--smoke", "--gen-len", "2"]
+        if torch.cuda.is_available():
+            assert serve.main(argv)["ids"].device.type == "cuda"
+            continue
+        with pytest.raises(RuntimeError, match="cuda"):
+            serve.main(argv)
 
 
-def test_unported_layer_kinds_raise():
-    _, cfg = _smoke()
-    for kw in (dict(rwkv_mode=True), dict(cross_attn=True),
-               dict(moe=base.MoEConfig(4, 2, 32)), dict(num_codebooks=2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            tf.init_params(dataclasses.replace(cfg, **kw),
-                           torch.Generator().manual_seed(0), "cpu")
-
-
-@pytest.mark.parametrize("part", ["transformer", "kv_cache", "ssm_state"])
+@pytest.mark.parametrize("part", ["transformer", "kv_cache", "ssm_state",
+                                  "rwkv_state", "rwkv_layer", "moe",
+                                  "caches"])
 def test_model_parts_take_no_default_device(part):
     """Nothing quietly builds on the CPU: every public model part that
     allocates takes an explicit ``device``."""
@@ -402,6 +400,11 @@ def test_model_parts_take_no_default_device(part):
         "kv_cache": lambda: kvc.init_kv_cache(1, 8, 1, 4, None,
                                               torch.float32),
         "ssm_state": lambda: ssm.init_ssm_state(1, cfg),
+        "rwkv_state": lambda: rwkv6.init_rwkv_state(1, cfg),
+        "rwkv_layer": lambda: rwkv6.init_rwkv_layer(torch.Generator(), cfg),
+        "moe": lambda: moe.init_moe(torch.Generator(), 8,
+                                    base.MoEConfig(4, 2, 8)),
+        "caches": lambda: tf.init_caches(cfg, 1, 8),
     }[part]
     with pytest.raises(TypeError, match="device"):
         build()
