@@ -156,12 +156,34 @@ then the other LM families, one model at a time:
    (at least two layers; Gemma-3's six): a 1040-token prefill (after a
    VLM's image tokens) against a 1000-token prefill + 40 decode steps,
    the last logits within phase 10's 1e-3 x max|logits|, no MoE
-   assignment dropped.
+   assignment dropped;
 
-Any kernel-vs-plain error over its tolerance (phases 3, 5, 6, 8 and 10),
-any main-path cell off its oracle, or any serve, server, chaos,
-rollout, calibration, gradient, training or family check that fails
-(phases 9-19) fails the run.
+then the distributed stencil path, on meshes of slots that all name the
+card (one process drives every slot, as the JAX package drives its
+mesh):
+
+20. four cells through ``api.plan(StencilProblem(..., mesh=,
+   grid_axes=))`` -> ``api.compile``: star2d_r2 8192^2 periodic inkernel
+   on 2x2, box2d_r1 8192^2 zero operator on 4x1, star3d_r2 512^3
+   periodic on 2x2 over axes 0-1, star2d_r2 batch 4 x 4096^2 periodic
+   inkernel on 2x2: each against the gather oracle at 1e-4, against the
+   same plan compiled on one device, and ``overlap=False`` bit-identical;
+   the exchange census one exchange per fused chunk and named axis, and
+   the kernel launches equal to the plan's (counters zeroed just before
+   the run, read just after); every kernel configuration the path
+   launched against its plain version at its shard shape; warm times
+   (overlap, serial, one device) and one profiled run split into
+   kernels, strip copies, haloed-buffer fills, other and idle;
+21. mesh fault tolerance: a star2d_r2 8192^2 rollout on 4x1 slots with
+   shard checkpoints, a seeded ``dist.exchange`` storm, the reshard to
+   2x1, bit-identical to the fault-free run; ``StencilServer(mesh_shape=
+   (2, 2))`` on four slots serving 16 star2d_r2 4096^2 requests, one slot
+   evicted and the group mesh shrunk to 2x1, every result at 1e-4.
+
+Any kernel-vs-plain error over its tolerance (phases 3, 5, 6, 8, 10 and
+20), any main-path cell off its oracle, or any serve, server, chaos,
+rollout, calibration, gradient, training, family or distributed check
+that fails (phases 9-21) fails the run.
 
 The last three lines are a JSON object ``{"kernels": [...]}`` (all four
 kernels; ``launches`` is the count of each kernel's own path — phase 4
@@ -170,7 +192,9 @@ counts of phases 4, 11, 12 (the seeded server), 13, 14 and 15 in
 ``launches_by_path``; the banded mixer's row counts phase 9's serve run,
 with phase 16's train launches beside it, and the ``banded_mixer_backward``
 row phase 16's backward launches; every row's ``launches_by_path`` also
-holds ``lm_families``, phase 18's launches of that kernel), the card's ``name,
+holds ``lm_families``, phase 18's launches of that kernel, and the step
+and sweep rows ``distributed`` and ``distributed_recovery``, phases 20
+and 21), the card's ``name,
 power.limit`` and ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository's sources beside this file, it exits non-zero and prints no
 result.
@@ -260,6 +284,25 @@ ROLLOUT = dict(cell="star2d_r2", grid=8192, serve_grid=4096)
 
 # phase 14: candidates measured per main-path cell
 CALIBRATE_TOP_K = 3
+# phase 20: the distributed path on slots of the card (the phase 4-7
+# cells' sizes; the planner free apart from the strategy pin)
+DIST_CELLS = (
+    dict(label="star2d_r2 8192^2 inkernel on 2x2", name="star2d_r2",
+         grid=(8192, 8192), steps=16, boundary="periodic",
+         strategy="inkernel", mesh=(2, 2), grid_axes=("x", "y")),
+    dict(label="box2d_r1 8192^2 zero operator on 4x1", name="box2d_r1",
+         grid=(8192, 8192), steps=16, boundary="zero", strategy="operator",
+         mesh=(4, 1), grid_axes=("x", "y")),
+    dict(label="star3d_r2 512^3 on 2x2", name="star3d_r2",
+         grid=(512, 512, 512), steps=8, boundary="periodic", strategy=None,
+         mesh=(2, 2), grid_axes=("x", "y", "")),
+    dict(label="star2d_r2 batch 4 4096^2 inkernel on 2x2", name="star2d_r2",
+         grid=(4096, 4096), steps=16, boundary="periodic",
+         strategy="inkernel", mesh=(2, 2), grid_axes=("x", "y"), batch=4),
+)
+# phase 21: mesh fault tolerance
+DIST_RECOVERY = dict(cell="star2d_r2", grid=8192, segment=4,
+                     serve_grid=4096, steps=16, requests=16, max_batch=4)
 # phase 15: the differentiable stencil at full width; dC sums ~6.7e7
 # products a tap at 8192^2, so it is held to this share of sum|g x|
 VJP_CELLS = (dict(name="box2d_r1", grid=(8192, 8192)),
@@ -1983,12 +2026,14 @@ def calibrate_cells(device, failures: list, cells=CELLS) -> dict:
     plain_report = plan_report.generate_report()
     chosen = [ln for ln in report.splitlines() if ln.startswith("chosen")]
     was = [ln for ln in plain_report.splitlines() if ln.startswith("chosen")]
-    ok = (loaded == pooled and len(chosen) == 13
-          and report.count("calibrated (") == 13)
+    # one table per PAPER_SUITE spec, and the distributed case
+    tables = len(api.PAPER_SUITE()) + 1
+    ok = (loaded == pooled and len(chosen) == tables
+          and report.count("calibrated (") == tables)
     log(f"  pooled record: compute {pooled.compute} traffic "
         f"{pooled.traffic}; plan report re-ranked with it: "
-        f"{sum(a != b for a, b in zip(chosen, was))} of 13 choices moved"
-        f"{'' if ok else '  FAIL'}")
+        f"{sum(a != b for a, b in zip(chosen, was))} of {tables} choices "
+        f"moved{'' if ok else '  FAIL'}")
     for a, b in zip(chosen, was):
         if a != b:
             log(f"    {b} -> {a}")
@@ -2783,6 +2828,348 @@ def lm_families(device, failures: list) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the distributed path on a mesh of slots of the card
+# phase 21: mesh fault tolerance (rollout reshard, server mesh shrink)
+# ---------------------------------------------------------------------------
+
+def _named_axes(cell) -> int:
+    return sum(1 for a in cell["grid_axes"] if a)
+
+
+def dist_plan_launches(eplan, n_slots: int) -> dict:
+    """Kernel launches one call of a distributed plan makes: each slot
+    runs :func:`plan_launches`'s chunks on its block, and under
+    Dirichlet-0 every chunk deeper than 1 re-evolves 2 strips per axis by
+    ``t`` base steps (step-kernel launches)."""
+    per = plan_launches(eplan)
+    if eplan.boundary == "zero":
+        per["stencil_step"] += sum(2 * eplan.spec.ndim * t
+                                   for t in eplan.fuse_schedule if t > 1)
+    return {k: v * n_slots for k, v in per.items()}
+
+
+class _Recording:
+    """Record one input of every distinct (kernel, plan, input shape) the
+    kernel wrappers are handed, until :meth:`restore`.  ``ops`` reaches
+    the wrappers through a stand-in of its ``stencil_mxu`` module; the
+    wrappers themselves (and their launch counters) stay in place."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import stencil_mxu as sm
+        self.seen: dict = {}
+        rec = self
+
+        class Module:
+            def __getattr__(self, name):
+                return getattr(sm, name)
+
+            @staticmethod
+            def stencil_cuda_call(x, plan, aux=()):
+                rec._note("stencil_step", x, plan, aux)
+                return sm.stencil_cuda_call(x, plan, aux)
+
+            @staticmethod
+            def sweep_cuda_call(x, plan, aux=()):
+                rec._note("stencil_sweep", x, plan, aux)
+                return sm.sweep_cuda_call(x, plan, aux)
+
+        self._ops, self._sm = ops, sm
+        ops.stencil_mxu = Module()
+
+    def _note(self, name, x, plan, aux):
+        key = (name, plan.spec.describe(), tuple(plan.block),
+               getattr(plan, "steps", 1), tuple(x.shape), len(aux))
+        if key not in self.seen:
+            self.seen[key] = (x.clone(), plan, tuple(aux))
+
+    def restore(self):
+        self._ops.stencil_mxu = self._sm
+
+
+def _dist_split(prof, wall_ms: float) -> str:
+    """Device time of a profiled distributed run: the two stencil
+    kernels, the strip copies (kernels under ``dist.exchange``), the
+    haloed-buffer fills (under ``dist.halo_fill``), the Dirichlet-0 strip
+    glue, everything else; idle share against ``wall_ms``."""
+    from torch.autograd import DeviceType
+    kernels, busy = 0.0, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith("dist."):
+            continue
+        ms = ev.self_device_time_total / 1e3
+        busy += ms
+        if "stencil_step_kernel" in ev.key or \
+                "stencil_sweep_kernel" in ev.key:
+            kernels += ms
+    ranges = {"dist.exchange": 0.0, "dist.halo_fill": 0.0}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name in ranges:
+            ranges[ev.name] += ev.device_time_total / 1e3
+    if busy == 0.0:
+        return "the profiler saw no device time: split not measured"
+    other = busy - kernels - sum(ranges.values())
+    return (f"device {busy:.3f} ms = kernels {kernels:.3f} + strip copies "
+            f"{ranges['dist.exchange']:.3f} + haloed-buffer fills "
+            f"{ranges['dist.halo_fill']:.3f} + other {other:.3f} ms; "
+            f"device idle {max(0.0, 1 - busy / wall_ms):.1%} of the "
+            f"{wall_ms:.1f} ms warm run")
+
+
+def _warm_ms(fn, x, device, reps: int = 3) -> float:
+    """Median host-clock ms of ``reps`` calls, each ending in a
+    synchronize."""
+    walls = []
+    for _ in range(reps):
+        _sync(device)
+        t0 = time.perf_counter()
+        fn(x)
+        _sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def distributed_cells(device, failures: list, cells=DIST_CELLS) -> dict:
+    """Phase 20: every cell through ``api.plan`` -> ``api.compile`` on a
+    mesh of slots of ``device``: the oracle at 1e-4, the same plan
+    compiled on one device, ``overlap=False`` bit-identical, the exchange
+    census and the kernel launches against the plan, every kernel
+    configuration the path launched against its plain version at its
+    shard shape, warm times and a profiled split."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import api
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.time_stepper import reference_evolve
+    from repro_torch.launch.mesh import make_mesh
+
+    smi = nvidia_smi_line() if device.type == "cuda" else "no card"
+    total = {"stencil_step": 0, "stencil_sweep": 0}
+    want_total = {"stencil_step": 0, "stencil_sweep": 0}
+    seen: dict = {}
+    for i, cell in enumerate(cells):
+        spec = api.PAPER_SUITE()[cell["name"]]
+        n = int(np.prod(cell["mesh"]))
+        mesh = make_mesh(cell["mesh"], ("x", "y")[:len(cell["mesh"])],
+                         devices=[device] * n)
+        batch = cell.get("batch", 1)
+        problem = api.StencilProblem(spec, cell["grid"],
+                                     boundary=cell["boundary"],
+                                     steps=cell["steps"], batch=batch,
+                                     mesh=mesh, grid_axes=cell["grid_axes"])
+        t0 = time.perf_counter()
+        p = api.plan(problem, backends=["cuda"],
+                     fuse_strategy=cell["strategy"])
+        run = api.compile(p, mesh=mesh)
+        serial = api.compile(p, mesh=mesh, overlap=False)
+        single = api.compile(dataclasses.replace(p, sharding=None,
+                                                 halo_strategy="pad"),
+                             device=device)
+        log(f"  {cell['label']}: plan cover={p.option} block={p.block} "
+            f"fuse={p.fuse_depth} strategy={p.fuse_strategy} schedule="
+            f"{p.schedule_str()} halo={p.halo_strategy} width="
+            f"{p.halo_width}, local block {problem.local_grid()} "
+            f"({time.perf_counter() - t0:.2f}s to plan+compile)")
+        shape = ((batch,) if batch > 1 else ()) + tuple(cell["grid"])
+        x = seeded_normal(shape, 4000 + i, device)
+        run(x)                                  # first call: builds plans
+        _sync(device)
+        rec = _Recording()
+        try:
+            _zero_counts()
+            dist.reset_exchange_counts()
+            y = run(x)
+            _sync(device)
+            counts = _read_counts()
+            census = dict(dist.exchange_counts)
+        finally:
+            rec.restore()
+        want = dist_plan_launches(p, n)
+        for k in total:
+            total[k] += counts[k]
+            want_total[k] += want[k]
+        chunks = len(p.fuse_schedule)
+        ok_census = (census["exchanges"] == chunks * _named_axes(cell)
+                     and census["permutes"] == 2 * census["exchanges"]
+                     and counts == want)
+        log(f"  {cell['label']}: census {census} ({chunks} chunks x "
+            f"{_named_axes(cell)} named axes), launches {counts} (plan "
+            f"implies {want}){'' if ok_census else '  FAIL'}")
+        if not ok_census:
+            failures.append(f"distributed census: {cell['label']}: "
+                            f"{census}, {counts} vs {want}")
+        oracle = reference_evolve(spec, x, cell["steps"], cell["boundary"])
+        err = (y - oracle).abs().max().item()
+        del oracle
+        err_single = (y - single(x)).abs().max().item()
+        same = torch.equal(y, serial(x))
+        finite = bool(torch.isfinite(y).all())
+        ok = (err <= E2E_ATOL and err_single <= E2E_ATOL and same and finite
+              and y.shape == x.shape and y.dtype == x.dtype)
+        log(f"  {cell['label']}: max|mesh-oracle| {err:.3e}, max|mesh-one "
+            f"device| {err_single:.3e} (tol {E2E_ATOL:g}), overlap=False "
+            f"bit-identical {same}, finite {finite}{'' if ok else '  FAIL'}")
+        if not ok:
+            failures.append(f"distributed: {cell['label']}: {err:.3e} / "
+                            f"{err_single:.3e} / overlap {same}")
+        for key, case in rec.seen.items():
+            seen.setdefault(key, case)
+        if device.type == "cuda":
+            wall = _warm_ms(run, x, device)
+            wall_serial = _warm_ms(serial, x, device)
+            wall_single = _warm_ms(single, x, device)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run(x)
+                _sync(device)
+            log(f"  {cell['label']}: warm run {wall:.3f} ms (overlap), "
+                f"{wall_serial:.3f} ms (overlap=False), same plan on one "
+                f"device {wall_single:.3f} ms (host clock, median of 3; "
+                f"{smi}); profiled run: {_dist_split(prof, wall)}")
+            del prof
+        del x, y
+    # every kernel configuration the path launched, at its shard shape
+    for (name, sdesc, block, steps, xshape, n_aux), (xin, kplan, aux) in \
+            sorted(seen.items(), key=lambda kv: repr(kv[0])):
+        from repro_torch.kernels import stencil_mxu as sm
+        kernel = sm.sweep_cuda_call if name == "stencil_sweep" \
+            else sm.stencil_cuda_call
+        plain = sm.sweep_plain if name == "stencil_sweep" \
+            else sm.stencil_step_plain
+        got, want_ = kernel(xin, kplan, aux), plain(xin, kplan, aux)
+        _sync(device)
+        err = (got.float() - want_.float()).abs().max().item()
+        tol = KERNEL_TOL[str(got.dtype).removeprefix("torch.")]
+        ok = err <= tol and got.shape == want_.shape
+        log(f"  {name} on the distributed path: {sdesc}, block {block}, "
+            f"T={steps}, {n_aux} aux, input {xshape}: max|kernel-plain| "
+            f"{err:.3e} (tol {tol:g}){'' if ok else '  FAIL'}")
+        if not ok:
+            failures.append(f"distributed kernel vs plain: {name} {xshape}: "
+                            f"{err:.3e}")
+        del got, want_
+    for name, v in total.items():
+        if v <= 0:
+            failures.append(f"the distributed path never launched {name}")
+    log(f"  launches over phase 20: {total} (plans imply {want_total})")
+    return {"launches": total}
+
+
+def dist_recovery(device, failures: list) -> dict:
+    """Phase 21: (a) a star2d_r2 rollout at 8192^2 on a 4x1 mesh of slots
+    with shard checkpoints, a seeded ``dist.exchange`` storm exhausting
+    segment 1's retries, the reshard to 2x1 from the shard checkpoint,
+    every emit and the final state bit-identical to the fault-free run;
+    (b) ``StencilServer(mesh_shape=(2, 2))`` on four slots of the card
+    serving 16 star2d_r2 4096^2 requests, one slot evicted by seeded
+    settle faults and the group mesh shrunk, every result at the 1e-4
+    oracle bar."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core.time_stepper import reference_evolve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import chaos
+    from repro_torch.runtime.fault_tolerance import RestartPolicy
+
+    cfg = DIST_RECOVERY
+    spec = api.PAPER_SUITE()[cfg["cell"]]
+    g = cfg["grid"]
+
+    def program():
+        mesh = make_mesh((4, 1), ("x", "y"), devices=[device] * 4)
+        prob = api.StencilProblem(spec, (g, g), boundary="periodic",
+                                  steps=1, mesh=mesh, grid_axes=("x", "y"))
+        return api.RolloutProgram(prob, [
+            api.Segment(cfg["segment"], emit=True),
+            api.Segment(cfg["segment"],
+                        api.UpdateOp("scale", {"factor": 0.5})),
+            api.Segment(cfg["segment"], emit=True)])
+
+    x = seeded_normal((g, g), 4100, device)
+    _zero_counts()
+    t0 = time.perf_counter()
+    clean = api.run_checkpointed(
+        api.compile_program(program(), backends=["cuda"], device=device), x)
+    _sync(device)
+    t_clean = time.perf_counter() - t0
+    d = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        compiled = api.compile_program(program(), backends=["cuda"],
+                                       device=device)
+        plan = chaos.FaultPlan(seed=5).rule("dist.exchange", at=(1, 2, 3),
+                                            match={"chunk": 0})
+        t0 = time.perf_counter()
+        with plan:
+            res = api.run_checkpointed(
+                compiled, x, directory=d,
+                restart=RestartPolicy(max_failures=2, backoff_s=0.0))
+        _sync(device)
+        t_fault = time.perf_counter() - t0
+        shards = sorted(p.name for p in Path(d).glob("step_*/shard_*"))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    same = (torch.equal(res.final, clean.final)
+            and [t for t, _ in res.emits] == [t for t, _ in clean.emits]
+            and all(torch.equal(a, b) for (_, a), (_, b)
+                    in zip(res.emits, clean.emits)))
+    ok = (same and res.resharded == 1 and res.attempts == (1, 4, 1)
+          and plan.fired("dist.exchange") == 3)
+    log(f"  {g}^2 rollout on 4x1 slots: fault-free {t_clean:.2f} s; the "
+        f"dist.exchange storm: attempts {res.attempts}, resharded "
+        f"{res.resharded} (4x1 -> 2x1), {t_fault:.2f} s with shard "
+        f"checkpoints ({len(shards)} shard files written); emits and final "
+        f"bit-identical to the fault-free run: {same}"
+        f"{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append(f"mesh rollout reshard: {res.attempts}, "
+                        f"{res.resharded}, bit-identical {same}")
+    del clean, res, x
+    rollout_counts = _read_counts()
+
+    sg = cfg["serve_grid"]
+    rng = np.random.default_rng(7)
+    states = [rng.standard_normal((sg, sg), dtype=np.float32)
+              for _ in range(cfg["requests"])]
+    server = api.StencilServer(spec, cfg["steps"], backends=["cuda"],
+                               max_batch=cfg["max_batch"],
+                               devices=[device] * 4, mesh_shape=(2, 2),
+                               evict_after=3, evict_cooldown_s=3600.0)
+    _zero_counts()
+    plan = chaos.FaultPlan(seed=0).rule("serve.settle", at=(0, 1, 2))
+    t0 = time.perf_counter()
+    with plan:
+        outs = server.serve(states)
+    _sync(device)
+    t_serve = time.perf_counter() - t0
+    serve_counts = _read_counts()
+    st = server.stats()
+    errs = [(o - reference_evolve(spec, torch.from_numpy(s).to(device),
+                                  cfg["steps"], "periodic")).abs().max()
+            .item() for o, s in zip(outs, states)]
+    ok = (max(errs) <= E2E_ATOL and st["faults"]["evictions"] == 1
+          and st["faults"]["mesh_shrinks"] == 1
+          and st["meshes"] == {f"{sg}x{sg}": "2x1"})
+    log(f"  StencilServer(mesh_shape=(2, 2)) on 4 slots of the card: "
+        f"{len(states)} {sg}^2 requests x {cfg['steps']} steps in "
+        f"{t_serve:.2f} s (host clock, faults and retries included); "
+        f"evictions {st['faults']['evictions']}, mesh_shrinks "
+        f"{st['faults']['mesh_shrinks']}, meshes {st['meshes']}; "
+        f"max|result-oracle| {max(errs):.3e} (tol {E2E_ATOL:g})"
+        f"{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append(f"mesh server eviction: {st['faults']}, "
+                        f"{st['meshes']}, {max(errs):.3e}")
+    log(f"  launches: rollouts {rollout_counts}, server {serve_counts}")
+    return {"launches": {k: rollout_counts[k] + serve_counts[k]
+                         for k in rollout_counts}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2921,6 +3308,22 @@ def main() -> int:
     for row in rows:
         row.setdefault("launches_by_path", {})["lm_families"] = \
             families.get(row["name"], 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_dist = time.perf_counter()
+    log("phase 20: the distributed path on slots of the card, "
+        "api.plan -> api.compile on a mesh")
+    distributed = distributed_cells(device, failures)
+    log("phase 21: mesh fault tolerance: a rollout resharded 4x1 -> 2x1, "
+        "a mesh server shrinking over the surviving slots")
+    recovery = dist_recovery(device, failures)
+    log(f"  phases 20-21 took {time.perf_counter() - t_dist:.1f} s")
+    for row in rows:
+        if row["name"] in distributed["launches"]:
+            row["launches_by_path"]["distributed"] = \
+                distributed["launches"][row["name"]]
+            row["launches_by_path"]["distributed_recovery"] = \
+                recovery["launches"][row["name"]]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     if failures:

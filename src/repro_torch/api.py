@@ -22,6 +22,21 @@ problem or plan of the JAX package carries across with identical numbers:
 a :class:`CalibrationRecord`; ``api.plan(problem, calibration=record)``
 re-ranks with it.  Records cross between the packages in both directions.
 
+Distributed: give the problem a mesh of device slots and per-axis mesh
+names and the compiled stepper exchanges a single ``T*r``-deep halo once
+per fused chunk, running the step or sweep kernel on each slot's block
+(one process drives every slot; a slot may repeat a device, so four
+slots of one card form a 2x2 mesh):
+
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 2), ("x", "y"))             # devices="cpu" too
+    problem = api.StencilProblem(api.star(2, 2), grid=(8192, 8192),
+                                 boundary="periodic", steps=16,
+                                 mesh=mesh, grid_axes=("x", "y"))
+    run = api.compile(api.plan(problem, backends=["cuda"]), mesh=mesh)
+    y = run(x)             # x: a global tensor, or a ShardedState
+
 Serving and rollouts sit on top: a :class:`PlanCache` memoizes plan +
 compile per problem, a :class:`StencilServer` batches a request stream
 into cached executables on the card, :class:`RolloutProgram` s

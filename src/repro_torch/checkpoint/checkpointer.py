@@ -21,10 +21,17 @@ the bytes ``msgpack.packb`` produces, so it needs no ``msgpack`` package.
 Tensors are copied to the host (``.cpu().numpy()``) before a save leaves
 the caller's thread; a bfloat16 tensor is stored as its exact float32
 upcast with ``"bfloat16"`` in the manifest.  Restore builds tensors on
-the caller's device.  Restoring onto a device mesh (``shardings=``)
-belongs to the distributed slice and raises ``NotImplementedError``; a
-mesh-sharded checkpoint of the JAX package is reassembled and restored
-on one device.
+the caller's device.
+
+A :class:`repro_torch.core.distributed.ShardedState` leaf is written as
+the JAX package writes a mesh-sharded array: one ``shard_<slot>.npz``
+file per slot holding that slot's block, each block's global index in
+the leaf's manifest entry (replicas written once), plus the mesh shape,
+axis names and grid axes under the entry's ``"mesh"`` key (the JAX
+package's restore ignores it).  Restore reassembles the global array
+from the indices — whichever package wrote it — and ``shardings=``
+re-shards it onto the CURRENT mesh, which may have another shape than
+the one that wrote it (elastic re-mesh after a failure).
 """
 from __future__ import annotations
 
@@ -45,9 +52,6 @@ from repro_torch.runtime import chaos
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "retained_steps", "CheckpointManager", "packb", "unpackb"]
 
-_MESH_RESTORE = ("restoring onto a device mesh belongs to the port's "
-                 "distributed slice (ROADMAP Queue 1 item 4), which is not "
-                 "ported yet; restore on one device")
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +199,17 @@ def unpackb(data: bytes):
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
+class _HostSharded:
+    """A sharded leaf copied to the host: ``(file, global index, data)``
+    per unique block, the dtype name, the global shape and the mesh
+    record."""
+    shards: tuple
+    dtype: str
+    shape: tuple
+    mesh: dict
+
+
+@dataclasses.dataclass(frozen=True)
 class _HostLeaf:
     """A leaf already copied to the host, with the dtype name the manifest
     records (``"bfloat16"`` for a bf16 tensor stored as float32)."""
@@ -227,11 +242,31 @@ def _tree_paths(tree) -> tuple[list[str], list, Callable]:
     return keys, leaves, lambda new: build(iter(new))
 
 
-def _to_host(leaf, copy: bool = False) -> _HostLeaf:
+def _sharded_to_host(state, copy: bool) -> _HostSharded:
+    shards = []
+    for c, idx, block in state.unique_blocks():
+        host = _to_host(block, copy)
+        index = [[0 if sl.start is None else int(sl.start),
+                  int(n) if sl.stop is None else int(sl.stop)]
+                 for sl, n in zip(idx, state.shape)]
+        shards.append((f"shard_{int(state.mesh.slots[c])}", index,
+                       host.data))
+    name = str(state.dtype).removeprefix("torch.")
+    return _HostSharded(
+        tuple(shards), name, tuple(int(n) for n in state.shape),
+        {"shape": list(state.mesh.shape),
+         "axes": list(state.mesh.axis_names),
+         "grid_axes": list(state.grid_axes)})
+
+
+def _to_host(leaf, copy: bool = False):
     """The leaf as host data; ``copy`` snapshots it even where the host
     array would share the caller's memory (CPU tensors, numpy arrays)."""
-    if isinstance(leaf, _HostLeaf):
+    from repro_torch.core.distributed import ShardedState
+    if isinstance(leaf, (_HostLeaf, _HostSharded)):
         return leaf
+    if isinstance(leaf, ShardedState):
+        return _sharded_to_host(leaf, copy)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         name = str(t.dtype).removeprefix("torch.")
@@ -272,28 +307,47 @@ def save_checkpoint(directory: str, step: int, tree: Any,
     keys, leaves, _ = _tree_paths(tree)
 
     manifest = {"step": step, "extra": extra or {}, "leaves": []}
-    blob: dict[str, np.ndarray] = {}
+    blobs: dict[str, dict[str, np.ndarray]] = {}
     for key, leaf in zip(keys, leaves):
         host = _to_host(leaf)
-        manifest["leaves"].append({
-            "key": key, "dtype": host.dtype,
-            "shape": [int(n) for n in host.data.shape],
-            "shards": [{"file": "shard_full", "index": None}]})
-        blob[key.replace("/", "__")] = host.data
-    np.savez(os.path.join(tmp, "shard_full.npz"), **blob)
-    # per-shard-file content digest: restore verifies the blob against it
-    # before trusting it
+        name = key.replace("/", "__")
+        if isinstance(host, _HostSharded):
+            entry = {"key": key, "dtype": host.dtype,
+                     "shape": list(host.shape), "shards": [],
+                     "mesh": host.mesh}
+            for fname, index, data in host.shards:
+                blobs.setdefault(fname, {})[name] = data
+                entry["shards"].append({"file": fname, "index": index})
+        else:
+            entry = {"key": key, "dtype": host.dtype,
+                     "shape": [int(n) for n in host.data.shape],
+                     "shards": [{"file": "shard_full", "index": None}]}
+            blobs.setdefault("shard_full", {})[name] = host.data
+        manifest["leaves"].append(entry)
+    if not blobs:
+        blobs["shard_full"] = {}
+    for fname, blob in blobs.items():
+        np.savez(os.path.join(tmp, fname + ".npz"), **blob)
+    # per-shard-file content digests: restore verifies each blob against
+    # these before trusting it, so a torn SINGLE-shard write is as
+    # detectable as a torn manifest
     manifest["shard_digests"] = {
-        "shard_full": _file_digest(os.path.join(tmp, "shard_full.npz"))}
+        fname: _file_digest(os.path.join(tmp, fname + ".npz"))
+        for fname in blobs}
     mpath = os.path.join(tmp, "manifest.msgpack")
     with open(mpath, "wb") as f:
         f.write(packb(manifest))
     # fault site: "raise" models a crash mid-write (the .tmp is left
     # behind — invisible to latest_step/GC); "corrupt" models a TORN
-    # write that still completed the rename: the manifest is truncated,
-    # and the resume fallback must skip to an older checkpoint
+    # write that still completed the rename: with slot shards the
+    # highest-named shard file is truncated (one slot's write torn
+    # mid-flight, caught by its manifest digest); otherwise the manifest
+    # itself is truncated.  Either way the resume fallback must skip to
+    # an older checkpoint.
     if chaos.fire("checkpoint.write", step=int(step)) == "corrupt":
-        _truncate(mpath)
+        sharded = sorted(f for f in blobs if f != "shard_full")
+        _truncate(os.path.join(tmp, sharded[-1] + ".npz") if sharded
+                  else mpath)
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
@@ -333,15 +387,43 @@ def _torch_dtype(leaf, fallback: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def _sharding_leaves(shardings, template, n: int) -> list:
+    """One sharding (or None) per leaf of ``template``: a single
+    ``MeshSharding`` applies to every leaf; a tree follows the template's
+    structure, a ``None`` node standing for every leaf below it."""
+    if shardings is None:
+        return [None] * n
+    if hasattr(shardings, "place"):
+        return [shardings] * n
+    out = []
+
+    def walk(node, tmpl):
+        if tmpl is None:
+            return
+        if isinstance(tmpl, dict):
+            for k in sorted(tmpl):
+                walk(None if node is None else node.get(k), tmpl[k])
+        elif isinstance(tmpl, (list, tuple)):
+            for j, v in enumerate(tmpl):
+                walk(None if node is None else node[j], v)
+        else:
+            out.append(node)
+
+    walk(shardings, template)
+    return out
+
+
 def restore_checkpoint(directory: str, step: int, target_tree: Any,
                        shardings: Any = None, *,
                        device=None) -> tuple[Any, dict]:
     """Rebuild the tree saved at ``step`` in the structure of
     ``target_tree``.  Each leaf comes back as a tensor of the target
     leaf's dtype, on ``device`` — by default the target leaf's device
-    when it is a tensor, else the CPU.  Returns ``(tree, extra)``."""
-    if shardings is not None:
-        raise NotImplementedError(_MESH_RESTORE)
+    when it is a tensor, else the CPU.  ``shardings`` (a
+    :class:`repro_torch.core.distributed.MeshSharding` for every leaf, or
+    a tree of them and ``None`` like ``target_tree``) re-shards a leaf
+    onto its mesh instead, whatever mesh wrote it.  Returns ``(tree,
+    extra)``."""
     path = os.path.join(directory, f"step_{step:08d}")
     chaos.fire("checkpoint.read", step=int(step))
     manifest = read_manifest(directory, step)
@@ -373,15 +455,20 @@ def restore_checkpoint(directory: str, step: int, target_tree: Any,
         by_key[key] = (full, entry["dtype"])
 
     keys, leaves, rebuild = _tree_paths(target_tree)
+    shards = _sharding_leaves(shardings, target_tree, len(leaves))
     new_leaves = []
-    for key, leaf in zip(keys, leaves):
+    for key, leaf, shd in zip(keys, leaves, shards):
         if key not in by_key:
             raise KeyError(f"checkpoint missing leaf {key!r}")
         arr, name = by_key[key]
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(
+            dtype=_torch_dtype(leaf, name))
+        if shd is not None:
+            new_leaves.append(shd.place(t))
+            continue
         dev = device if device is not None else (
             leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        new_leaves.append(t.to(device=dev, dtype=_torch_dtype(leaf, name)))
+        new_leaves.append(t.to(device=dev))
     return rebuild(new_leaves), manifest["extra"]
 
 

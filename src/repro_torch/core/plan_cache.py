@@ -124,15 +124,22 @@ def cache_key(problem: StencilProblem, *, hw=None, calibration=None,
 
     Everything that changes what ``compile_plan(plan(problem, ...))``
     builds is keyed: the operator (by coefficient digest), grid, dtype,
-    boundary, steps, batch, the hardware model (by its roofline
-    parameters, not just its name), the calibration record (by content
-    digest), the rollout program identity (``program=``; ``None`` for
-    plain sweeps) and every planner pin (``fuse=``, ``backends=``,
-    ``block=``, ``fuse_strategy=``, ...).  PLAN_VERSION leads the tuple
-    so a cache can never serve a stale-format plan across an upgrade.
-    The slot the JAX package fills with the mesh decomposition is
-    ``None``: problems are single-device until the distributed slice.
+    boundary, steps, batch, the mesh decomposition (shape, axis names,
+    grid axes, and the slots and devices the executable is bound to), the
+    hardware model (by its roofline parameters, not just its name), the
+    calibration record (by content digest), the rollout program identity
+    (``program=``; ``None`` for plain sweeps) and every planner pin
+    (``fuse=``, ``backends=``, ``block=``, ``fuse_strategy=``, ...).
+    PLAN_VERSION leads the tuple so a cache can never serve a
+    stale-format plan across an upgrade.
     """
+    sharding = None
+    if problem.mesh is not None:
+        mesh = problem.mesh
+        sharding = (mesh.shape, tuple(mesh.axis_names),
+                    tuple(problem.grid_axes),
+                    tuple(int(k) for k in mesh.slots.flat),
+                    tuple(str(d) for d in mesh.devices.flat))
     return (
         PLAN_VERSION,
         _spec_digest(problem.spec),
@@ -141,7 +148,7 @@ def cache_key(problem: StencilProblem, *, hw=None, calibration=None,
         problem.boundary,
         int(problem.steps),
         int(problem.batch),
-        None,
+        sharding,
         _program_key(program),
         _hw_key(hw),
         _calibration_digest(calibration),
@@ -346,13 +353,10 @@ class PlanCache:
         """The compiled executable for ``problem``, memoized.
 
         ``plan_kwargs`` pass through to :func:`repro_torch.core.planner
-        .plan` (and join the key).  ``mesh`` belongs to the distributed
-        slice and raises ``NotImplementedError``.
+        .plan` (and join the key).  A problem with a mesh compiles to the
+        distributed stepper on ``mesh`` (by default the problem's own);
+        the mesh decomposition is part of the key through the problem.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh executables belong to the port's distributed slice "
-                "(ROADMAP Queue 1 item 4), which is not ported yet")
         key = cache_key(problem, hw=self._hw, calibration=calibration,
                         **plan_kwargs)
         entry = self._lookup(key)
@@ -368,7 +372,9 @@ class PlanCache:
         # behind (the miss was already counted — honest accounting)
         chaos.fire("cache.compile", backend=p.backend,
                    batch=int(problem.batch))
-        compiled: CompiledStencil = compile_plan(p, device=self._device)
+        compiled: CompiledStencil = compile_plan(
+            p, mesh=mesh if mesh is not None else problem.mesh,
+            device=self._device)
         entry = CachedExecutable(key=key, plan=p, compiled=compiled,
                                  fn=compiled.fn)
         self._insert(key, entry)
@@ -388,13 +394,14 @@ class PlanCache:
         memo, so programs sharing segment shapes share cost tables.  The
         entry's ``plan`` is the :class:`repro_torch.rollout.planning
         .RolloutPlan`.
+
+        Mesh-sharded programs key like distributed sweeps — the mesh is
+        part of :func:`cache_key` via the problem (a reshard is a
+        different executable), while ``mesh`` (by default the problem's
+        own) materializes the steppers, exactly as in :meth:`get`.
         """
         from repro_torch.rollout.executor import compile_program
         from repro_torch.rollout.planning import plan_program
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh executables belong to the port's distributed slice "
-                "(ROADMAP Queue 1 item 4), which is not ported yet")
         key = cache_key(dataclasses.replace(program.problem,
                                             steps=program.total_steps),
                         hw=self._hw, calibration=calibration,
@@ -407,7 +414,9 @@ class PlanCache:
         chaos.fire("cache.compile",
                    backend=rplan.segment_plans[0].backend,
                    batch=int(program.problem.batch))
-        compiled = compile_program(rplan, device=self._device)
+        compiled = compile_program(
+            rplan, device=self._device,
+            mesh=mesh if mesh is not None else program.problem.mesh)
 
         def fn(x):
             res = compiled.run(x)

@@ -25,10 +25,12 @@ Decisions recorded per plan:
     shared-memory intermediates; only for backends registering a
     ``sweep_builder``).  Both carry the same 1-read/1-write-per-chunk
     traffic
-  * ``halo_strategy`` — "none" (valid) | "pad" (single device)
+  * ``halo_strategy`` — "none" (valid) | "pad" (single device) |
+    "exchange" (mesh: ONE ``T*r``-deep exchange per fused chunk)
+  * ``sharding``     — mesh shape/axes + grid axis mapping
 
-Cost model (per fused sweep over the grid, divided by the chunk depth and
-the batch for a per-state-step figure):
+Cost model (per fused sweep over the device-local grid, divided by the
+chunk depth and the batch for a per-state-step figure):
   * t_compute = flops(block) * n_blocks
                 / (peak_flops * backend.effective_efficiency(calibration))
                 [+ the modelled Dirichlet-0 strip recompute surcharge];
@@ -37,8 +39,11 @@ the batch for a per-state-step figure):
                 products
   * t_traffic = block_hbm_bytes(block, T*r) * n_blocks / hbm_bw
                 [* the backend's calibrated traffic factor]
-The chosen candidate minimizes (max(t_compute, t_traffic) + launch) /
-(T * batch); ties break toward the higher-efficiency backend, then
+  * t_comm    = 2 * T*r * (face area) * dtype_bytes / ici_bw  per sharded
+                axis (one deep exchange per chunk; ``ici_bw`` is the
+                card's NVLink rate each way)
+The chosen candidate minimizes (max(t_compute, t_traffic, t_comm) +
+launch) / (T * batch); ties break toward the higher-efficiency backend, then
 lexicographically, so plans are deterministic.  Hardware constants come
 from ``repro_torch.launch.mesh.H100_SXM``; tiles are gated by what the
 kernels keep in a block's shared memory (``matrixization.step_smem_bytes``
@@ -48,8 +53,10 @@ blocks per SM), so a plan never picks a tile the kernels cannot launch.
 ``calibration`` takes a measured
 :class:`repro_torch.launch.calibrate.CalibrationRecord` (this package's or
 the JAX package's, read by ``from_json``) or an equivalent factor
-mapping.  Distributed planning (``StencilProblem(mesh=...)``) comes with
-a later slice of the port.
+mapping.  Distributed planning (``StencilProblem(mesh=..., grid_axes=...)``
+with a :class:`repro_torch.launch.mesh.DeviceMesh`) plans the
+device-local block and compiles to the fused distributed stepper of
+:mod:`repro_torch.core.distributed`.
 """
 from __future__ import annotations
 
@@ -68,7 +75,8 @@ from repro_torch.core import matrixization as mx
 from repro_torch.core import temporal
 from repro_torch.core.engine import (StencilEngine, backend_names,
                                      choose_cover, default_block, get_backend,
-                                     legal_covers, max_fuse_depth_for)
+                                     legal_covers, max_fuse_depth_for,
+                                     resolve_device)
 from repro_torch.core.stencil_spec import StencilSpec, from_numpy
 
 __all__ = ["StencilProblem", "CandidateCost", "ExecutionPlan",
@@ -128,8 +136,11 @@ class StencilProblem:
       batch: how many independent states one compiled call advances
         together (a leading batch axis of the executable's input; the
         kernels' second grid dimension).
-      mesh / grid_axes: distributed planning — not ported yet; giving
-        either raises ``NotImplementedError``.
+      mesh / grid_axes: set together or not at all.  ``mesh`` is a
+        :class:`repro_torch.launch.mesh.DeviceMesh`; ``grid_axes`` names
+        one mesh axis per spatial axis ('' for unsharded).  When set,
+        planning is per device-local block and compile() emits the fused
+        distributed stepper (one deep halo exchange per fused chunk).
 
     Example::
 
@@ -148,11 +159,6 @@ class StencilProblem:
     grid_axes: tuple[str, ...] | None = None
 
     def __post_init__(self):
-        if self.mesh is not None or self.grid_axes is not None:
-            raise NotImplementedError(
-                "distributed planning (mesh / grid_axes) belongs to the "
-                "port's distributed slice, which is not ported yet; plan "
-                "on one device")
         halo.check_boundary(self.boundary)
         object.__setattr__(self, "grid", tuple(int(n) for n in self.grid))
         if len(self.grid) != self.spec.ndim:
@@ -169,11 +175,44 @@ class StencilProblem:
                 raise ValueError(f"spec {name} shape {tuple(f.shape)} != "
                                  f"problem grid {self.grid} — scenario "
                                  f"fields live on the problem grid")
+        if (self.mesh is None) != (self.grid_axes is None):
+            raise ValueError("mesh and grid_axes must be given together")
+        if self.mesh is not None and not self.spec.is_constant_dense:
+            raise ValueError("distributed planning does not support "
+                             "varying-coefficient or masked specs (the deep "
+                             "halo exchange does not yet ship the scenario "
+                             "fields); plan per device or drop the mesh")
+        if self.grid_axes is not None:
+            object.__setattr__(self, "grid_axes", tuple(self.grid_axes))
+            if len(self.grid_axes) != self.spec.ndim:
+                raise ValueError("grid_axes needs one entry per spatial axis")
+            if self.boundary == "valid":
+                raise ValueError("distributed problems need a "
+                                 "shape-preserving boundary")
         _torch_dtype(self.dtype)  # validate
 
     @property
     def dtype_bytes(self) -> int:
         return _torch_dtype(self.dtype).itemsize
+
+    def mesh_axis_sizes(self) -> dict[str, int]:
+        if self.mesh is None:
+            return {}
+        return self.mesh.axis_sizes()
+
+    def local_grid(self) -> tuple[int, ...]:
+        """Per-slot spatial extents (== grid on a single device)."""
+        if self.mesh is None:
+            return self.grid
+        sizes = self.mesh_axis_sizes()
+        out = []
+        for n, ax in zip(self.grid, self.grid_axes):
+            d = sizes.get(ax, 1) if ax else 1
+            if n % d:
+                raise ValueError(f"grid extent {n} not divisible by mesh "
+                                 f"axis {ax!r} of size {d}")
+            out.append(n // d)
+        return tuple(out)
 
     def to_dict(self) -> dict:
         """The numpy-level description: the spec's coefficients as lists,
@@ -216,8 +255,9 @@ class CandidateCost:
     candidate.
 
     ``t_compute`` / ``t_traffic`` / ``t_comm`` are the CALIBRATED seconds
-    per fused sweep of the WHOLE batch (equal to the raw modelled terms
-    when the plan carries no calibration; ``t_comm`` is 0 on one device);
+    per fused sweep of the WHOLE batch over one slot's block (equal to
+    the raw modelled terms when the plan carries no calibration;
+    ``t_comm`` is 0 on one device);
     ``t_launch`` is the per-chunk dispatch overhead; ``t_per_step`` ranks
     the table and is normalized PER STATE per step:
     ``(max(compute, traffic, comm) + launch) / (depth * batch)``.
@@ -232,7 +272,7 @@ class CandidateCost:
     block: tuple[int, ...]  # output tile this row was scored at
     mxu_flops: float        # per fused sweep over the grid (all states)
     hbm_bytes: float        # per fused sweep over the grid (all states)
-    ici_bytes: float        # per fused chunk across devices (0 here)
+    ici_bytes: float        # per fused chunk (deep halo exchange, all states)
     t_compute: float        # seconds per sweep
     t_traffic: float
     t_comm: float
@@ -299,7 +339,8 @@ def _step_flops(be, spec: StencilSpec, cover: cl.LineCover,
 def _candidate(spec: StencilSpec, fspec: StencilSpec | None, depth: int,
                option: str, cover: cl.LineCover, backend: str,
                block: tuple[int, ...], grid: tuple[int, ...],
-               boundary: str, base_flops: float, dtype_bytes: int, hw,
+               sharded_axes: Sequence[int], boundary: str,
+               base_flops: float, dtype_bytes: int, hw,
                calib: Mapping | None = None,
                strategy: str = "operator",
                batch: int = 1) -> CandidateCost:
@@ -336,10 +377,17 @@ def _candidate(spec: StencilSpec, fspec: StencilSpec | None, depth: int,
     if active < 1.0:
         flops *= active
         bytes_hbm *= active
+    # one T*r-deep exchange per chunk: two strips per sharded axis, each
+    # the block's face (every state of the batch)
+    ici = 0.0
+    for a in sharded_axes:
+        face = float(np.prod([g for i, g in enumerate(grid) if i != a]))
+        ici += 2 * depth * spec.order * face * dtype_bytes * batch
     t_launch = float(getattr(hw, "launch_overhead_s", LAUNCH_OVERHEAD_S))
     per = depth * batch
     t_compute_raw = flops / (hw.peak_flops * be.efficiency)
     t_traffic_raw = bytes_hbm / hw.hbm_bw
+    t_comm = ici / hw.ici_bw if ici else 0.0
     if calib is not None:
         cfac = _calib_factor(calib.get("compute", {}), backend, strategy)
         eff = be.effective_efficiency(
@@ -351,12 +399,12 @@ def _candidate(spec: StencilSpec, fspec: StencilSpec | None, depth: int,
         t_compute, t_traffic = t_compute_raw, t_traffic_raw
     return CandidateCost(depth=depth, option=option, backend=backend,
                          block=tuple(block), strategy=strategy, batch=batch,
-                         mxu_flops=flops, hbm_bytes=bytes_hbm, ici_bytes=0.0,
+                         mxu_flops=flops, hbm_bytes=bytes_hbm, ici_bytes=ici,
                          t_compute=t_compute, t_traffic=t_traffic,
-                         t_comm=0.0, t_launch=t_launch,
-                         t_model=(max(t_compute_raw, t_traffic_raw)
+                         t_comm=t_comm, t_launch=t_launch,
+                         t_model=(max(t_compute_raw, t_traffic_raw, t_comm)
                                   + t_launch) / per,
-                         t_per_step=(max(t_compute, t_traffic)
+                         t_per_step=(max(t_compute, t_traffic, t_comm)
                                      + t_launch) / per)
 
 
@@ -602,11 +650,15 @@ class ExecutionPlan:
         """
         p = self.problem
         spec = self.spec
+        sh = self.sharding
+        mesh_s = ("-" if sh is None else
+                  "x".join(str(n) for n in sh["mesh_shape"]) + "("
+                  + ",".join(a if a else "." for a in sh["grid_axes"]) + ")")
         ch = self.chosen()
         lines = [
             f"ExecutionPlan v{self.version}: {spec.describe()} | "
             f"grid={tuple(p['grid'])} {p['dtype']} | boundary={p['boundary']} "
-            f"| steps={p['steps']} | batch={self.batch} | mesh=-",
+            f"| steps={p['steps']} | batch={self.batch} | mesh={mesh_s}",
             f"hw {self.hw['name']}: {self.hw['peak_flops'] / 1e12:.0f} "
             f"TFLOP/s peak, {self.hw['hbm_bw'] / 1e9:.0f} GB/s device "
             f"memory, {self.hw['ici_bw'] / 1e9:.0f} GB/s link",
@@ -681,6 +733,14 @@ def _hw_dict(hw) -> dict:
 def _default_hw():
     from repro_torch.launch.mesh import H100_SXM
     return H100_SXM
+
+
+def _sharded_axes(problem: StencilProblem) -> list[int]:
+    if problem.grid_axes is None:
+        return []
+    sizes = problem.mesh_axis_sizes()
+    return [i for i, ax in enumerate(problem.grid_axes)
+            if ax and sizes.get(ax, 1) > 1]
 
 
 def _base_stats(spec: StencilSpec, block: tuple[int, ...],
@@ -782,7 +842,8 @@ def plan(problem: StencilProblem, hw=None, *,
             f"registers a sweep_builder supporting this spec "
             f"(see register_backend)")
 
-    grid = problem.grid
+    grid = problem.local_grid()
+    sharded_axes = _sharded_axes(problem)
     calib = _calibration_dict(calibration)
     if block is not None:
         blocks = [tuple(int(b) for b in block)]
@@ -834,7 +895,8 @@ def plan(problem: StencilProblem, hw=None, *,
                             continue
                         cands.append(_candidate(
                             spec, fspec, t, opt, cover, nm, blk, grid,
-                            problem.boundary, base_stats[blk][1],
+                            sharded_axes, problem.boundary,
+                            base_stats[blk][1],
                             problem.dtype_bytes, hw, calib,
                             batch=problem.batch))
         if "inkernel" in strategies and t > 1 and \
@@ -856,7 +918,8 @@ def plan(problem: StencilProblem, hw=None, *,
                             continue
                         cands.append(_candidate(
                             spec, None, t, opt, cover, nm, blk, grid,
-                            problem.boundary, base_stats[blk][1],
+                            sharded_axes, problem.boundary,
+                            base_stats[blk][1],
                             problem.dtype_bytes, hw, calib,
                             strategy="inkernel", batch=problem.batch))
     if not cands:
@@ -875,6 +938,22 @@ def plan(problem: StencilProblem, hw=None, *,
         base_option = best.option
     schedule = tuple(temporal.fuse_schedule(problem.steps, depth))
 
+    if problem.boundary == "valid":
+        halo_strategy = "none"
+    elif problem.mesh is not None:
+        # the compiled stepper exchanges on EVERY named mesh axis (size-1
+        # axes exchange with themselves, carrying no link traffic —
+        # t_comm already reflects that), so the record matches the
+        # executable
+        halo_strategy = "exchange"
+    else:
+        halo_strategy = "pad"
+    sharding = None
+    if problem.mesh is not None:
+        sharding = {"mesh_shape": list(problem.mesh.shape),
+                    "mesh_axes": list(problem.mesh.axis_names),
+                    "grid_axes": list(problem.grid_axes)}
+
     return ExecutionPlan(
         version=PLAN_VERSION,
         problem=problem.to_dict(),
@@ -887,9 +966,9 @@ def plan(problem: StencilProblem, hw=None, *,
         fuse_depth=depth,
         fuse_schedule=schedule,
         fuse_strategy=best.strategy if depth > 1 else "operator",
-        halo_strategy="none" if problem.boundary == "valid" else "pad",
+        halo_strategy=halo_strategy,
         halo_width=depth * r,
-        sharding=None,
+        sharding=sharding,
         candidates=tuple(cands),
         calibration=calib,
     )
@@ -912,7 +991,7 @@ def candidate_cost(problem: StencilProblem, depth: int, option: str,
     if hw is None:
         hw = _default_hw()
     spec = problem.spec
-    grid = problem.grid
+    grid = problem.local_grid()
     if block is None:
         block = tuple(min(b, g) for b, g in zip(default_block(spec), grid))
     block = tuple(int(b) for b in block)
@@ -923,7 +1002,8 @@ def candidate_cost(problem: StencilProblem, depth: int, option: str,
         fspec = spec if depth == 1 else temporal.fuse_steps(spec, depth)
         cover = cl.make_cover(fspec, option)
     return _candidate(spec, fspec, depth, option, cover, backend, block,
-                      grid, problem.boundary, base_flops,
+                      grid, _sharded_axes(problem), problem.boundary,
+                      base_flops,
                       problem.dtype_bytes, hw,
                       _calibration_dict(calibration), strategy=strategy,
                       batch=problem.batch)
@@ -985,27 +1065,35 @@ def max_profitable_batch(problem: StencilProblem, max_batch: int, hw=None, *,
 
 @dataclasses.dataclass
 class CompiledStencil:
-    """An executable for one ExecutionPlan on one device.
+    """An executable for one ExecutionPlan on one device or a mesh.
 
     ``fn(x)`` advances ``plan.steps`` applications (PyTorch runs eagerly:
     the schedule, covers and kernel plans are fixed here, the kernels
     build at their first launch); ``step`` is the single
-    shape-preserving step where one exists.
+    shape-preserving step where one exists.  A distributed plan carries
+    its :class:`repro_torch.core.distributed.DistributedStepper` in
+    ``stepper``; its ``fn`` takes a global tensor (sharded and gathered
+    around the call) or a ``ShardedState`` on the stepper's mesh.
     """
 
     plan: ExecutionPlan
     fn: Callable
     step: Callable | None = None
     engine: StencilEngine | None = None
+    stepper: Any | None = None
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self.fn(x)
 
 
-def _check_plan_input(x, grid: tuple[int, ...], nd: int, batch: int) -> None:
+def _check_plan_input(x, grid: tuple[int, ...], nd: int, batch: int,
+                      exact_rank: bool = False) -> None:
     """Shared shape gate of every compiled executable's entry point.
-    Executables keep accepting ad-hoc leading axes at batch 1 (the engine
-    cores are lead-polymorphic)."""
+
+    ``exact_rank`` is set by the distributed wrapper, whose blocks have a
+    fixed rank: there an unplanned extra leading axis fails HERE with a
+    clear error.  Single-device executables keep accepting ad-hoc leading
+    axes at batch 1 (the engine cores are lead-polymorphic)."""
     if tuple(x.shape[x.ndim - nd:]) != grid:
         raise ValueError(f"input spatial shape "
                          f"{tuple(x.shape[x.ndim - nd:])} != planned "
@@ -1014,20 +1102,66 @@ def _check_plan_input(x, grid: tuple[int, ...], nd: int, batch: int) -> None:
     if batch > 1 and lead != (batch,):
         raise ValueError(f"plan expects a leading batch axis of "
                          f"{batch}, got input shape {tuple(x.shape)}")
+    if batch <= 1 and exact_rank and lead:
+        raise ValueError(f"plan was compiled without a batch axis; got "
+                         f"input shape {tuple(x.shape)} with leading axes "
+                         f"{lead} (plan with batch={lead[0]} to batch)")
 
 
-def compile_plan(eplan: ExecutionPlan, *, device="cuda") -> CompiledStencil:
+def _compile_distributed(eplan: ExecutionPlan, mesh, device,
+                         overlap: bool) -> CompiledStencil:
+    from repro_torch.core.distributed import make_fused_distributed_stepper
+    from repro_torch.launch.mesh import make_mesh
+    sh = eplan.sharding
+    if mesh is None:
+        resolve_device(device)
+        mesh = make_mesh(sh["mesh_shape"], sh["mesh_axes"], devices=device)
+    if list(mesh.axis_names) != list(sh["mesh_axes"]) or \
+            list(mesh.shape) != list(sh["mesh_shape"]):
+        raise ValueError(f"mesh {mesh.axis_names}{mesh.shape} does not "
+                         f"match the plan's {sh}")
+    for d in set(mesh.devices.flat):
+        resolve_device(d)
+    spec = eplan.spec
+    batch = eplan.batch
+    stepper = make_fused_distributed_stepper(
+        spec, mesh, sh["grid_axes"], schedule=eplan.fuse_schedule,
+        option=eplan.base_option,
+        fused_option=eplan.option if eplan.fuse_depth > 1 else "auto",
+        backend=eplan.backend, boundary=eplan.boundary, block=eplan.block,
+        fuse_strategy=eplan.fuse_strategy,
+        batch=batch if batch > 1 else None, overlap=overlap)
+
+    def fn(x):
+        # the same clear shape errors the single-device fn raises
+        _check_plan_input(x, eplan.grid, spec.ndim, batch, exact_rank=True)
+        # through the stepper's __call__: the host-side dist.* chaos
+        # wrapper lives there (one global read unless a FaultPlan is
+        # active; the work and its exchange census are identical)
+        return stepper(x)
+
+    return CompiledStencil(plan=eplan, fn=fn, stepper=stepper)
+
+
+def compile_plan(eplan: ExecutionPlan, mesh=None, *, device="cuda",
+                 overlap: bool = True) -> CompiledStencil:
     """Materialize an ExecutionPlan into an executable on ``device``
     (the card unless the caller asks for ``"cpu"``; without a card the
-    default raises)."""
+    default raises).
+
+    Distributed plans (``sharding`` set) compile to the fused sharded
+    stepper on ``mesh``: ONE ``T*r``-deep halo exchange per fused chunk,
+    the exchange overlapped with compute on copy streams when
+    ``overlap``.  Without a ``mesh`` the recorded mesh shape is rebuilt
+    with every slot on ``device``; a mesh of another shape or axis names
+    raises ``ValueError``.
+    """
     if eplan.fuse_strategy not in FUSE_STRATEGIES:
         raise ValueError(f"plan carries unknown fuse strategy "
                          f"{eplan.fuse_strategy!r}; choose from "
                          f"{FUSE_STRATEGIES}")
     if eplan.sharding is not None:
-        raise NotImplementedError(
-            "a distributed plan (sharding set) needs the port's distributed "
-            "slice, which is not ported yet")
+        return _compile_distributed(eplan, mesh, device, overlap)
     spec = eplan.spec
     batch = eplan.batch
     eng = StencilEngine(spec, option=eplan.base_option, backend=eplan.backend,

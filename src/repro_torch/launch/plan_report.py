@@ -1,4 +1,5 @@
-"""Plan report: ``plan(problem).explain()`` for the PAPER_SUITE on the card.
+"""Plan report: ``plan(problem).explain()`` for the PAPER_SUITE on the card,
+and one distributed case (star2d_r2 on a 2x2 mesh of slots).
 
 The golden test (``tests/test_torch_plan_golden.py``) diffs this module's
 output against ``tests/golden/torch_plan_report.txt``, so any cost-model
@@ -29,7 +30,10 @@ candidate, best first — see ``ExecutionPlan.explain``):
     block      output tile the row was scored at (the block search)
     t_compute  calibrated compute seconds per fused sweep over the grid
     t_traffic  calibrated device-memory seconds per fused sweep
-    t_comm     link seconds per fused chunk (0 on one card)
+    t_comm     link seconds per fused chunk: the deep halo exchange of
+               one slot's block over the card's NVLink rate (0 off-mesh;
+               the summary line's ``mesh=`` names the mesh shape and the
+               mesh axis of each grid axis, ``.`` for unsharded)
     t/model    UNcalibrated per-state-per-step score
                (max(compute,traffic,comm) + launch overhead) / (T * batch)
     t/step     calibrated per-state-per-step score — the quantity plan()
@@ -42,10 +46,10 @@ import argparse
 
 from repro_torch.core.planner import StencilProblem, plan
 from repro_torch.core.stencil_spec import PAPER_SUITE
-from repro_torch.launch.mesh import H100_SXM, get_hardware
+from repro_torch.launch.mesh import H100_SXM, get_hardware, make_mesh
 
 __all__ = ["generate_report", "REPORT_GRID_2D", "REPORT_GRID_3D",
-           "REPORT_STEPS", "REPORT_MAX_DEPTH", "REPORT_TOP"]
+           "REPORT_STEPS", "REPORT_MAX_DEPTH", "REPORT_TOP", "REPORT_MESH"]
 
 # Report cell: one representative shape-preserving evolution per paper spec.
 REPORT_GRID_2D = (256, 256)
@@ -53,6 +57,9 @@ REPORT_GRID_3D = (64, 64, 64)
 REPORT_STEPS = 16
 REPORT_MAX_DEPTH = 4
 REPORT_TOP = 4
+# The distributed case: (spec, mesh shape, mesh axes, grid axes).  The
+# mesh only supplies shape and names here; nothing runs.
+REPORT_MESH = ("star2d_r2", (2, 2), ("x", "y"), ("x", "y"))
 
 
 def generate_report(hw=H100_SXM, steps: int = REPORT_STEPS,
@@ -72,6 +79,14 @@ def generate_report(hw=H100_SXM, steps: int = REPORT_STEPS,
         lines.append("")
         lines.append(f"## {name}")
         lines.append(p.explain(top=top))
+    name, shape, axes, grid_axes = REPORT_MESH
+    mesh = make_mesh(shape, axes)
+    problem = StencilProblem(suite[name], REPORT_GRID_2D, boundary="periodic",
+                             steps=steps, mesh=mesh, grid_axes=grid_axes)
+    p = plan(problem, hw, max_depth=max_depth, calibration=calibration)
+    lines.append("")
+    lines.append(f"## {name} on a {mesh.describe()} mesh")
+    lines.append(p.explain(top=top))
     return "\n".join(lines) + "\n"
 
 

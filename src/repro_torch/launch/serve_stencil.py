@@ -58,8 +58,13 @@ carry over:
     sticky — the context is unusable after it — so the bucket's tickets
     fail with it and it propagates; nothing is requeued onto that
     context.
-  * **Mesh serving** (``mesh_shape=``) belongs to the distributed slice
-    and raises ``NotImplementedError``.
+  * **Mesh serving** (``mesh_shape=``, with ``devices=`` listing at
+    least that many slots): each shape group's states are sharded over
+    a :class:`repro_torch.launch.mesh.DeviceMesh` of that shape carved
+    from the active slots, sticky per group and homed on its lead slot
+    (whose cache and stream serve it); the executable is the fused
+    distributed stepper.  Slots are named by index, so four slots of
+    one card form a 2x2 mesh and an eviction takes out one of them.
 
 Buckets are powers of two so a variable-size stream maps onto a tiny,
 highly-reusable set of compiled batch shapes; the padding waste is
@@ -97,9 +102,15 @@ deterministically through :mod:`repro_torch.runtime.chaos`:
              serving keeps ``degraded == {}``.
   evict      a slot failing ``evict_after`` consecutive buckets leaves
              the round-robin rotation; its sticky shape groups remap to
-             surviving slots.  After ``evict_cooldown_s`` it rejoins on
-             probation (one strike re-evicts with doubled cooldown) and
-             takes one remapped group back as the probe.
+             surviving slots.  A MESH-sharded group takes the
+             partial-mesh rung instead: the eviction SHRINKS the group's
+             mesh over the surviving slots (same halving rule as
+             ``rollout.executor.shrink_mesh`` — same global grid, fewer
+             slots), re-homes it on the shrunk mesh's lead slot, and
+             counts ``stats()["faults"]["mesh_shrinks"]``.  After
+             ``evict_cooldown_s`` a slot rejoins on probation (one
+             strike re-evicts with doubled cooldown) and takes one
+             remapped group back as the probe.
   shed       when the deadline-miss rate over the last ``shed_window``
              deadline-carrying requests crosses ``shed_miss_rate``, the
              lowest-priority class of PENDING requests is shed (their
@@ -134,6 +145,7 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.core.plan_cache import PlanCache, ready_event, wait_ready
 from repro_torch.core.planner import StencilProblem
 from repro_torch.core.stencil_spec import PAPER_SUITE, StencilSpec
+from repro_torch.launch.mesh import DeviceMesh, shrunk_shape
 from repro_torch.rollout.program import RolloutProgram, Segment, as_segments
 from repro_torch.runtime import chaos
 from repro_torch.runtime.fault_tolerance import RestartPolicy
@@ -258,8 +270,9 @@ class ServeStats:
     failures, including injected ones), ``retries`` (failed buckets
     requeued under a retry budget), ``fallbacks`` (shape groups degraded
     to the fallback backend), ``evictions`` (slots removed from the
-    rotation) and ``shed`` (pending requests dropped under deadline
-    pressure).
+    rotation), ``mesh_shrinks`` (mesh-sharded groups whose mesh shrank
+    over surviving slots) and ``shed`` (pending requests dropped under
+    deadline pressure).
     ``rollout_attempts``/``rollout_recovered``: total dispatch attempts
     of rollout segment buckets, and rollout requests whose segment
     settled only after at least one retry.
@@ -276,6 +289,7 @@ class ServeStats:
     retries: int = 0
     fallbacks: int = 0
     evictions: int = 0
+    mesh_shrinks: int = 0
     rollout_attempts: int = 0
     rollout_recovered: int = 0
     shed: int = 0
@@ -333,6 +347,10 @@ class StencilServer:
     device slots (``None``: one slot on the card, ``"cuda"``; the CPU
     tests pass ``["cpu"]`` or ``["cpu", "cpu"]``); shape groups route
     round-robin over them, one ``PlanCache`` and one stream per slot.
+    ``mesh_shape=(2, 2)`` (with ``devices=`` of at least 4 slots) shards
+    every shape group over a mesh of that shape instead (axis names
+    ``mesh_axes``, by default ``gx, gy, ...``; ``grid_axes`` maps each
+    spatial axis to one, by default the mesh axes in order then ``''``).
 
     Fault handling (module docstring): ``restart`` is the per-shape-group
     retry-budget TEMPLATE (cloned per group; ``None`` gives the default
@@ -357,6 +375,8 @@ class StencilServer:
                  admission: bool = True, admission_rtol: float = 0.0,
                  devices: Sequence | None = None,
                  mesh_shape: Sequence[int] | None = None,
+                 mesh_axes: Sequence[str] | None = None,
+                 grid_axes: Sequence[str] | None = None,
                  restart: RestartPolicy | None = None,
                  fallback_after: int | None = 2,
                  fallback_backends: Sequence[str] = ("torch",),
@@ -371,11 +391,6 @@ class StencilServer:
             raise ValueError("evict_after >= 1")
         if shed_miss_rate is not None and not 0.0 <= shed_miss_rate <= 1.0:
             raise ValueError("shed_miss_rate in [0, 1]")
-        if mesh_shape is not None:
-            raise NotImplementedError(
-                "mesh serving (mesh_shape=) belongs to the port's "
-                "distributed slice (ROADMAP Queue 1 item 4), which is not "
-                "ported yet; serve on device slots (devices=)")
         self.spec = spec
         self.steps = int(steps)
         self.boundary = boundary
@@ -399,6 +414,32 @@ class StencilServer:
         if devices is None:
             devices = [cache.device if cache is not None else "cuda"]
         self._devices = [_slot_device(d) for d in devices]
+        # mesh-sharded serving: each shape group's states are sharded
+        # over a mesh of this shape carved from the server's slots; an
+        # eviction SHRINKS a group's mesh instead of remapping it
+        if mesh_shape is not None:
+            self.mesh_shape = tuple(int(n) for n in mesh_shape)
+            if int(np.prod(self.mesh_shape)) > len(self._devices):
+                raise ValueError(f"mesh_shape {self.mesh_shape} needs "
+                                 f"{int(np.prod(self.mesh_shape))} slots, "
+                                 f"got {len(self._devices)} (pass "
+                                 f"devices=)")
+            naxes = len(self.mesh_shape)
+            self.mesh_axes = (tuple(mesh_axes) if mesh_axes is not None
+                              else ("gx", "gy", "gz", "gw")[:naxes])
+            if len(self.mesh_axes) != naxes:
+                raise ValueError("one mesh axis name per mesh_shape axis")
+            self.grid_axes = (tuple(grid_axes) if grid_axes is not None
+                              else self.mesh_axes
+                              + ("",) * (spec.ndim - naxes))
+            if len(self.grid_axes) != spec.ndim:
+                raise ValueError(f"grid_axes needs {spec.ndim} entries "
+                                 f"('' = unsharded axis)")
+        else:
+            if mesh_axes is not None or grid_axes is not None:
+                raise ValueError("mesh_axes/grid_axes need mesh_shape")
+            self.mesh_shape = None
+            self.mesh_axes = self.grid_axes = ()
         if cache is not None and _slot_device(cache.device) \
                 != self._devices[0]:
             raise ValueError(f"cache runs on {cache.device}, slot 0 on "
@@ -423,6 +464,7 @@ class StencilServer:
         self._next_ticket = 0
         self._caps: dict[tuple[int, ...], int] = {}
         self._group_dev: dict[tuple[int, ...], int] = {}
+        self._group_mesh: dict[tuple[int, ...], DeviceMesh] = {}
         self._rr = 0                    # round-robin cursor (active slots)
         # degradation-ladder state -----------------------------------------
         self._retry: dict[tuple[int, ...], RestartPolicy] = {}
@@ -707,11 +749,14 @@ class StencilServer:
 
     # -- execution ---------------------------------------------------------
     def _problem(self, shape: tuple[int, ...], batch: int,
-                 steps: int | None = None) -> StencilProblem:
+                 steps: int | None = None,
+                 mesh: DeviceMesh | None = None) -> StencilProblem:
+        kw = ({"mesh": mesh, "grid_axes": self.grid_axes}
+              if mesh is not None else {})
         return StencilProblem(self.spec, shape, dtype=self.dtype,
                               boundary=self.boundary,
                               steps=self.steps if steps is None else steps,
-                              batch=batch)
+                              batch=batch, **kw)
 
     def _plan_kwargs(self, shape: tuple[int, ...] | None = None) -> dict:
         """Planner pins for one shape group — the DEGRADED pin once the
@@ -729,8 +774,18 @@ class StencilServer:
     def _device_of(self, shape: tuple[int, ...]) -> int:
         """Round-robin shape-group -> slot assignment (sticky, so a
         group's buckets always hit the same cache and stream; evicted
-        slots are skipped)."""
+        slots are skipped).  Under mesh serving the group's home is its
+        mesh's LEAD slot — failure attribution and cache selection follow
+        the mesh, not the round-robin cursor."""
         with self._lock:
+            if self.mesh_shape is not None:
+                di = int(self._group_mesh_for(shape).slots.flat[0])
+                if self._group_dev.get(shape) != di:
+                    self._group_dev[shape] = di
+                    name = _shape_str(shape)
+                    if name not in self._device_stats[di]["shapes"]:
+                        self._device_stats[di]["shapes"].append(name)
+                return di
             di = self._group_dev.get(shape)
             if di is None or self._evicted_until[di] is not None:
                 active = self._active_devices() or [0]
@@ -742,9 +797,57 @@ class StencilServer:
                     self._device_stats[di]["shapes"].append(name)
             return di
 
+    def _slot_mesh(self, slots: Sequence[int],
+                   shape: tuple[int, ...]) -> DeviceMesh:
+        devs = np.empty(len(slots), dtype=object)
+        devs[:] = [self._devices[i] for i in slots]
+        return DeviceMesh(devs.reshape(shape), self.mesh_axes,
+                          np.asarray(slots, dtype=np.int64))
+
+    def _group_mesh_for(self, shape: tuple[int, ...]) -> DeviceMesh:
+        """The shape group's serving mesh, built lazily over the ACTIVE
+        slots at the configured ``mesh_shape`` (shrunk down the same
+        halving ladder if evictions already thinned the rotation below
+        it).  Once built the mesh is sticky — it changes only through
+        :meth:`_evict_device`'s shrink rung (lock held)."""
+        mesh = self._group_mesh.get(shape)
+        if mesh is None:
+            active = self._active_devices()
+            mshape: tuple[int, ...] | None = self.mesh_shape
+            while int(np.prod(mshape)) > len(active):
+                mshape = shrunk_shape(mshape)
+                if mshape is None:   # unreachable: the last slot stays
+                    raise RuntimeError("no active slots left for a mesh")
+            n = int(np.prod(mshape))
+            mesh = self._group_mesh[shape] = self._slot_mesh(active[:n],
+                                                             mshape)
+        return mesh
+
+    def _shrink_group_mesh(self, mesh: DeviceMesh) -> DeviceMesh | None:
+        """The largest halving of ``mesh`` that fits on its surviving
+        (non-evicted) slots, preserving their order — ``None`` when a
+        single-slot mesh cannot shrink further (lock held).  Slots are
+        told apart by index: every slot may name the same device."""
+        survivors = [int(k) for k in mesh.slots.flat
+                     if self._evicted_until[int(k)] is None]
+        shape: tuple[int, ...] | None = mesh.shape
+        while True:
+            shape = shrunk_shape(shape)
+            if shape is None:
+                return None
+            n = int(np.prod(shape))
+            if n <= len(survivors):
+                return self._slot_mesh(survivors[:n], shape)
+
     def _evict_device(self, di: int, now: float) -> None:
         """Remove one slot from the rotation and remap its sticky groups
-        to survivors (lock held)."""
+        to survivors (lock held).  A MESH-sharded group whose mesh
+        contains the evicted slot takes the partial-mesh rung instead:
+        its mesh SHRINKS over the surviving slots (same grid, fewer
+        slots — the serving mirror of the rollout executor's
+        reshard-on-failure) and the group re-homes on the shrunk mesh's
+        lead slot; only a mesh that cannot shrink falls back to the plain
+        rebuild-over-survivors remap."""
         if len(self._active_devices()) <= 1:
             return                        # never evict the last slot
         self._evicted_until[di] = now + self._dev_cooldown[di]
@@ -755,7 +858,23 @@ class StencilServer:
         self._device_stats[di]["evictions"] += 1
         self._device_stats[di]["evicted"] = True
         self.stats_.evictions += 1
-        moved = [s for s, d in self._group_dev.items() if d == di]
+        shrunk: set[tuple[int, ...]] = set()
+        for shape, mesh in list(self._group_mesh.items()):
+            if di not in {int(k) for k in mesh.slots.flat}:
+                continue
+            new_mesh = self._shrink_group_mesh(mesh)
+            if new_mesh is None:
+                # a 1-slot mesh lost its slot: rebuild lazily over
+                # whatever survives, via the normal remap path
+                del self._group_mesh[shape]
+                continue
+            self._group_mesh[shape] = new_mesh
+            self._group_dev[shape] = int(new_mesh.slots.flat[0])
+            self._caps.pop(shape, None)   # new mesh -> new cache key/cap
+            self.stats_.mesh_shrinks += 1
+            shrunk.add(shape)
+        moved = [s for s, d in self._group_dev.items()
+                 if d == di and s not in shrunk]
         for shape in moved:
             del self._group_dev[shape]    # next _device_of reassigns
             self._remapped.setdefault(di, []).append(shape)
@@ -788,7 +907,11 @@ class StencilServer:
         """
         cap = self._caps.get(shape)
         if cap is None:
-            if self.admission and self.max_batch > 1:
+            # mesh serving skips the cliff walk: the admission model
+            # prices single-device plans, not per-slot distributed ones
+            if self.mesh_shape is not None:
+                cap = self.max_batch
+            elif self.admission and self.max_batch > 1:
                 di = self._device_of(shape)
                 cap = self.caches[di].bucket_cap(
                     self._problem(shape, 1), self.max_batch,
@@ -842,18 +965,21 @@ class StencilServer:
         di = self._device_of(shape)
         dev, stream = self._devices[di], self._streams[di]
         with self._lock:
+            mesh = (self._group_mesh_for(shape)
+                    if self.mesh_shape is not None else None)
             seg = chunk[0].rollout.current if chunk[0].rollout else None
             for r in chunk:
                 r.attempts += 1
             if seg is not None:
                 self.stats_.rollout_attempts += len(chunk)
         if seg is not None:
-            program = RolloutProgram(self._problem(shape, b, steps=seg.steps),
-                                     (seg,))
-            entry = self.caches[di].get_program(program,
+            program = RolloutProgram(
+                self._problem(shape, b, steps=seg.steps, mesh=mesh), (seg,))
+            entry = self.caches[di].get_program(program, mesh=mesh,
                                                 **self._plan_kwargs(shape))
         else:
-            entry = self.caches[di].get(self._problem(shape, b),
+            entry = self.caches[di].get(self._problem(shape, b, mesh=mesh),
+                                        mesh=mesh,
                                         **self._plan_kwargs(shape))
         chaos.fire("serve.dispatch", shape=_shape_str(shape), device=di,
                    bucket=b)
@@ -1244,12 +1370,17 @@ class StencilServer:
                 "retries": st.retries,
                 "fallbacks": st.fallbacks,
                 "evictions": st.evictions,
+                "mesh_shrinks": st.mesh_shrinks,
                 "rollout_attempts": st.rollout_attempts,
                 "rollout_recovered": st.rollout_recovered,
                 "shed": st.shed,
             }
             s["degraded"] = {_shape_str(shape): list(b) for shape, b
                              in sorted(self._group_backends.items())}
+            if self.mesh_shape is not None:
+                s["meshes"] = {
+                    _shape_str(shape): m.describe()
+                    for shape, m in sorted(self._group_mesh.items())}
             s["stepper"] = {"running": self.running,
                             "error": str(self._stepper_error)
                             if self._stepper_error else None}

@@ -8,7 +8,8 @@ card unless ``--device cpu`` is given, and raises when asked for the card
 without one.  The model is drawn from a ``torch.Generator`` seeded with
 0 (no weight file); the data is ``SyntheticLM`` (seed 0) unless
 ``--data-path`` names a flat uint16 token file.  ``--mesh`` belongs to
-the distributed slice (ROADMAP Queue 1 item 4) and raises.  Any
+the LM half of the distributed slice (ROADMAP Queue 1 item 4) and
+raises.  Any
 ``--arch`` of ``configs.base.ARCH_IDS``: ``--seq`` counts text tokens (a
 VLM's image tokens come on top), and a VLM's patch embeddings and a
 cross-attention model's conditioning are the pipeline's stubs.
@@ -51,8 +52,9 @@ def main(argv=None) -> Trainer:
 
     if args.mesh:
         raise NotImplementedError(
-            "--mesh: mesh training belongs to the port's distributed slice "
-            "(ROADMAP Queue 1 item 4), which is not ported yet")
+            "--mesh: mesh training belongs to the LM half of the port's "
+            "distributed slice (ROADMAP Queue 1 item 4), which is not "
+            "ported yet")
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.ckpt_dir is None:

@@ -35,10 +35,14 @@ Fault sites (the instrumented points):
                           ``segment``, ``attempt``)
     ``rollout.update``    CompiledRollout.run_segment, after the
                           update op applied (ctx: ``segment``)
-    ``dist.device``       the distributed stepper's sites, kept so
-    ``dist.chunk``        that fault plans written for the JAX package
-    ``dist.exchange``     load; nothing of this package fires them until
-                          the distributed stepper is ported
+    ``dist.device``       DistributedStepper call entry, once a call
+                          (ctx: ``devices``, ``mesh``)
+    ``dist.chunk``        once per fused chunk (ctx: + ``chunk``,
+                          ``depth``)
+    ``dist.exchange``     once per fused chunk's deep halo exchange
+                          (ctx: + ``chunk``, ``width``); ``corrupt``
+                          runs the call on a perturbed input, then
+                          raises (transport checksum)
 
 Determinism: each rule owns an independent ``numpy`` Generator seeded
 from ``(plan seed, rule index)`` plus a per-rule call counter, so a

@@ -9,8 +9,8 @@ checkpoint and replaying the deterministic data stream.  There is no jit
 and no donation; the step updates the state in place, so after a failure
 the state is always rebuilt from the checkpoint (or from the seed).
 
-Mesh training belongs to the distributed slice (ROADMAP Queue 1 item 4):
-``mesh=``/``shardings=`` raise ``NotImplementedError``.
+Mesh training belongs to the LM half of the distributed slice (ROADMAP
+Queue 1 item 4): ``mesh=``/``shardings=`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,8 +35,8 @@ from repro_torch.train.train_step import (TrainState, init_train_state,
 
 __all__ = ["TrainerConfig", "Trainer"]
 
-_MESH = ("mesh training belongs to the port's distributed slice (ROADMAP "
-         "Queue 1 item 4), which is not ported yet")
+_MESH = ("mesh training belongs to the LM half of the port's distributed "
+         "slice (ROADMAP Queue 1 item 4), which is not ported yet")
 
 
 @dataclasses.dataclass

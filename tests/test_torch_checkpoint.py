@@ -16,6 +16,8 @@ import jax.numpy as jnp
 from repro.checkpoint import checkpointer as ref_ck
 
 from repro_torch.checkpoint import checkpointer as ck
+from repro_torch.core.distributed import MeshSharding, unshard
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.runtime import chaos
 
 torch.set_num_threads(2)
@@ -167,9 +169,16 @@ def test_mesh_sharded_reference_manifest_reassembles(tmp_path):
         f.truncate(16)
     with pytest.raises(ValueError, match="digest"):
         ck.restore_checkpoint(d, 1, {"state": torch.zeros(())})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ck.restore_checkpoint(d, 1, {"state": torch.zeros(())},
-                              shardings={"state": "mesh"})
+    # restored onto a mesh of another shape (the ported shardings=)
+    os.remove(os.path.join(path, "shard_1.npz"))
+    np.savez(os.path.join(path, "shard_1.npz"), state=full[4:])
+    mesh = make_mesh((4,), ("x",), devices="cpu")
+    got, _ = ck.restore_checkpoint(
+        d, 1, {"state": torch.zeros(())},
+        shardings={"state": MeshSharding(mesh, ("x", ""))})
+    st = got["state"]
+    assert st.mesh is mesh and st.local_shape == (2, 6)
+    np.testing.assert_array_equal(unshard(st).numpy(), full)
 
 
 def test_bfloat16_leaves_round_trip_exactly(tmp_path):

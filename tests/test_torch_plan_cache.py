@@ -20,7 +20,7 @@ from repro_torch.core import plan_cache as pc_mod
 from repro_torch.core import stencil_spec as ss
 from repro_torch.core.plan_cache import PlanCache, cache_key
 from repro_torch.core.time_stepper import reference_evolve
-from repro_torch.launch.mesh import H100_SXM
+from repro_torch.launch.mesh import H100_SXM, make_mesh
 
 torch.set_num_threads(2)
 
@@ -253,7 +253,16 @@ def test_cache_defaults_to_the_card_and_mesh_waits():
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             PlanCache()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        _cache().get(_problem(), mesh=object())
+    # the mesh branch is ported: a mesh problem keys by its mesh and
+    # compiles to the distributed stepper (the reference's get(mesh=))
+    mesh = make_mesh((2,), ("x",), devices="cpu")
+    prob = _problem(mesh=mesh, grid_axes=("x", ""))
+    entry = _cache().get(prob, mesh=mesh, backends=["torch"])
+    assert entry.compiled.stepper is not None
+    assert cache_key(prob) != cache_key(_problem())
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((32, 32))
+                         .astype(np.float32))
+    want = reference_evolve(ss.box(2, 1, seed=0), x, 3, "periodic")
+    np.testing.assert_allclose(entry(x).numpy(), want.numpy(), atol=1e-4)
     with pytest.raises(ValueError, match="maxsize"):
         _cache(maxsize=0)

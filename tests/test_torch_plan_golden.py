@@ -42,7 +42,10 @@ def test_torch_plan_report_covers_whole_suite():
     assert current.startswith("# plan-report: PAPER_SUITE on h100_sxm ")
     for name in PAPER_SUITE():
         assert f"## {name}" in current
-    assert current.count("<- chosen") == len(PAPER_SUITE()) == 13
+    # every suite spec, plus the distributed case on a 2x2 mesh
+    assert current.count("<- chosen") == len(PAPER_SUITE()) + 1 == 14
+    assert "## star2d_r2 on a 2x2 mesh" in current
+    assert current.count("mesh=2x2(x,y)") == 1
 
 
 def test_calibrated_report_says_calibrated(tmp_path):
@@ -53,7 +56,7 @@ def test_calibrated_report_says_calibrated(tmp_path):
     path.write_text(rec.to_json())
     loaded = CalibrationRecord.from_json(path.read_text())
     report = plan_report.generate_report(calibration=loaded)
-    assert report.count("calibrated (h100_sxm measured") == 13
+    assert report.count("calibrated (h100_sxm measured") == 14
     assert "cuda:x1.00/x3.00 cuda:inkernel:x1.50/x1.00" in report
     assert "calibrated/state-step" in report
     assert report != plan_report.generate_report()

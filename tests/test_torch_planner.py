@@ -155,9 +155,19 @@ def test_plans_only_pick_launchable_tiles(name, grid, steps):
 
 
 def test_mesh_waits_for_the_distributed_slice():
-    with pytest.raises(NotImplementedError, match="distributed"):
-        api.StencilProblem(ss.box(2, 1), grid=(16, 16), mesh=object(),
-                           grid_axes=("x", ""))
+    """The mesh branch is ported: a mesh problem plans its local block
+    and records the exchange, and the reference's pairing rule holds."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2,), ("x",), devices="cpu")
+    with pytest.raises(ValueError, match="together"):
+        api.StencilProblem(ss.box(2, 1), grid=(16, 16), mesh=mesh)
+    prob = api.StencilProblem(ss.box(2, 1), grid=(16, 16), mesh=mesh,
+                              grid_axes=("x", ""), steps=2)
+    assert prob.local_grid() == (8, 16)
+    p = api.plan(prob, backends=["cuda"])
+    assert p.halo_strategy == "exchange"
+    assert p.sharding == {"mesh_shape": [2], "mesh_axes": ["x"],
+                          "grid_axes": ["x", ""]}
 
 
 def test_calibration_mapping_reranks():

@@ -38,6 +38,8 @@ from repro_torch.rollout import (RolloutPlan, RolloutProgram, Segment,
                                  compile_program, plan_program,
                                  register_update_op, run_checkpointed,
                                  update_op_names)
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.rollout.executor import shrink_mesh
 from repro_torch.rollout.program import segment_out_grid
 from repro_torch.runtime.fault_tolerance import (HeartbeatMonitor,
                                                  RestartPolicy, StepTimeout)
@@ -376,8 +378,17 @@ def test_compile_program_defaults_to_the_card():
         return
     with pytest.raises(RuntimeError, match="cuda"):
         compile_program(prog, backends=["cuda"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        compile_program(prog, device="cpu", mesh=object())
+    # a mesh program compiles (the mesh branch is ported) and runs the
+    # same rollout within 1e-4 of the single-device one
+    mesh = make_mesh((2,), ("x",), devices="cpu")
+    mprog = RolloutProgram(dataclasses.replace(
+        prog.problem, mesh=mesh, grid_axes=("x", "")), prog.segments)
+    compiled = compile_program(mprog, device="cpu", backends=["cuda"])
+    assert compiled.mesh is mesh
+    x = _state(prog)
+    got, want = compiled.run(x), _compile(prog).run(x)
+    torch.testing.assert_close(got.final, want.final, atol=1e-4, rtol=0)
+    assert shrink_mesh(mesh).shape == (1,)
 
 
 # ---------------------------------------------------------------------------

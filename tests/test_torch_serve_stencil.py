@@ -425,8 +425,14 @@ def test_server_validates_input_rank_and_steps():
     server = _server(spec, 2)
     with pytest.raises(ValueError):
         server.submit(np.zeros((2, 16, 16), np.float32))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    # mesh serving is ported: it needs as many slots as the mesh
+    with pytest.raises(ValueError, match="slots"):
         _server(spec, 2, mesh_shape=(2,))
+    x = np.random.default_rng(0).standard_normal((16, 16)).astype(np.float32)
+    mesh_server = _server(spec, 2, mesh_shape=(2,), devices=["cpu"] * 2)
+    np.testing.assert_allclose(mesh_server.serve([x])[0].numpy(),
+                               _ref(x, spec, 2), atol=1e-4)
+    assert mesh_server.stats()["meshes"] == {"16x16": "2"}
 
 
 def test_server_defaults_to_the_card():
