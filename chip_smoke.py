@@ -46,8 +46,9 @@ Phases:
    bf16, B = 4, H = 25, S in {40, 128, 1536}, Dh in {8, 16, 64, 128}),
    ``ops.banded_mix``'s gradients (``dx`` by flip-mix-flip through the
    kernel, ``dband``) against autograd through the plain version at 1e-5
-   x max|plain| (the train shape (2, 1024, 3200) depthwise, T = 1027, a
-   shared band, and a leading batch beyond ``MAX_BATCH``), and
+   x max|plain| (the train shape (2, 1024, 3200) depthwise, phase 22's
+   dp group's (1, 1024, 3200), T = 1027, a shared band, and a leading
+   batch beyond ``MAX_BATCH``), and
    ``flash_attention``'s gradients against autograd through the plain
    version;
 9. build Hymba-1.5B at full width and depth on the card from a seeded
@@ -178,12 +179,37 @@ mesh):
    shard checkpoints, a seeded ``dist.exchange`` storm, the reshard to
    2x1, bit-identical to the fault-free run; ``StencilServer(mesh_shape=
    (2, 2))`` on four slots serving 16 star2d_r2 4096^2 requests, one slot
-   evicted and the group mesh shrunk to 2x1, every result at 1e-4.
+   evicted and the group mesh shrunk to 2x1, every result at 1e-4;
+
+then the LM half of the distributed path on slots of the card:
+
+22. (a) Hymba-1.5B at full width and depth (f32 parameters, bf16
+   compute, remat full), batch 4 x 1024 ``SyntheticLM`` tokens, 3 steps
+   through ``Trainer(mesh=make_mesh((4, 2), ("data", "model")))``: the
+   data-parallel step with FSDP placement (a gather, four dp groups'
+   forward and backward, an f32 mean, a scatter, AdamW on the blocks);
+   the banded mixer's launches 32 layers x 4 groups x 3 (forward, remat
+   recompute, dx) a step, counters zeroed just before the run, and each
+   mixer configuration the run launched against its plain version (the
+   run's final save is counted, not written); step time against phase
+   16's one-device step, peak memory, the sync census and one profiled
+   step split into gather, reduction, scatter, mixer, SSM scan, AdamW and
+   the rest; (b) at depth 4 in f32 compute: the 4x2 step's loss within
+   1e-4 of one device's (4 microbatches, same seed) and its gradient norm
+   within 1e-4 relative, its checkpoint (timed) restored onto 2x2x2
+   ``("pod", "data", "model")`` by the Trainer and the second step held
+   the same way, and the groups' gradients reduced with a bf16 wire
+   within 0.02 relative of the f32 mean; (c) Granite-3.0-3B-A800M (40
+   experts) and Qwen3-30B-A3B (128) at full width, depth 2, f32: one
+   train step on a ``(1, 4)`` ``("data", "model")`` mesh (MoE expert
+   parallel, 4 model slots, each slot's experts on its own device, here
+   the card) within 1e-4 of the dense path on one device, and the
+   forward's device ms of dispatch and expert products on both.
 
 Any kernel-vs-plain error over its tolerance (phases 3, 5, 6, 8, 10 and
 20), any main-path cell off its oracle, or any serve, server, chaos,
 rollout, calibration, gradient, training, family or distributed check
-that fails (phases 9-21) fails the run.
+that fails (phases 9-22) fails the run.
 
 The last three lines are a JSON object ``{"kernels": [...]}`` (all four
 kernels; ``launches`` is the count of each kernel's own path — phase 4
@@ -194,7 +220,8 @@ with phase 16's train launches beside it, and the ``banded_mixer_backward``
 row phase 16's backward launches; every row's ``launches_by_path`` also
 holds ``lm_families``, phase 18's launches of that kernel, and the step
 and sweep rows ``distributed`` and ``distributed_recovery``, phases 20
-and 21), the card's ``name,
+and 21, and the two banded-mixer rows ``distributed_train``, phase 22's
+launches), the card's ``name,
 power.limit`` and ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository's sources beside this file, it exits non-zero and prints no
 result.
@@ -303,15 +330,25 @@ DIST_CELLS = (
 # phase 21: mesh fault tolerance
 DIST_RECOVERY = dict(cell="star2d_r2", grid=8192, segment=4,
                      serve_grid=4096, steps=16, requests=16, max_batch=4)
+# phase 22: the LM half of the distributed path on slots of the card
+DIST_TRAIN = dict(mesh=(4, 2), batch=4, seq=1024, steps=3, lr=3e-4, seed=0)
+DIST_TRAIN_CHECK = dict(layers=4, period=2, batch=4, seq=1024, seed=0,
+                        restore_mesh=(2, 2, 2))
+DIST_TRAIN_TOL = 1e-4               # the reference's loss bar
+DIST_COMPRESS_REL_TOL = 0.02        # the reference's compressed-sync bar
+EP_TRAIN = dict(archs=("granite_moe_3b_a800m", "qwen3_moe_30b_a3b"),
+                layers=2, mesh=(1, 4), batch=2, seq=512, seed=0)
 # phase 15: the differentiable stencil at full width; dC sums ~6.7e7
 # products a tap at 8192^2, so it is held to this share of sum|g x|
 VJP_CELLS = (dict(name="box2d_r1", grid=(8192, 8192)),
              dict(name="star3d_r1", grid=(256, 256, 256)))
 VJP_DC_REL_TOL = 1e-4
 
-# phase 8: banded_mix backward cases (leading axes, T, D, band kind); the
-# last has a leading batch beyond the kernel's grid limit MAX_BATCH
+# phase 8: banded_mix backward cases (leading axes, T, D, band kind): phase
+# 16's shape, phase 22a's dp group's, and the last with a leading batch
+# beyond the kernel's grid limit MAX_BATCH
 BANDED_GRAD_CASES = (((2,), 1024, 3200, "depthwise"),
+                     ((1,), 1024, 3200, "depthwise"),
                      ((2,), 1027, 3200, "depthwise"),
                      ((2,), 1024, 3200, "shared"),
                      ((65535 + 3,), 6, 8, "depthwise"))
@@ -1175,7 +1212,6 @@ def serve_consistency(device, failures: list, lm: dict) -> None:
     import dataclasses
 
     import torch
-    from repro_torch.kernels import banded_mixer as bm
     from repro_torch.launch.input_specs import (sample_from_specs,
                                                 train_batch_specs)
     from repro_torch.models import kv_cache as kvc
@@ -1214,17 +1250,27 @@ def serve_consistency(device, failures: list, lm: dict) -> None:
                         f"(rings={rings})")
     del model, full, last, state
 
-    def path_cases():
-        for i, (shape, band_shape, dtype, bt, bd) in enumerate(
-                sorted(lm["configs"], key=str)):
-            x = seeded_normal(shape, 8000 + i, device).to(dtype)
-            band = seeded_normal(band_shape, 8100 + i, device) / band_shape[0]
-            yield (f"banded_mixer on the serve path: x{shape} band"
-                   f"{band_shape} {str(dtype).removeprefix('torch.')} tile "
-                   f"({bt}, {bd})", bm.banded_mixer_cuda_call(x, band, bt, bd),
-                   bm.banded_mixer_plain(x, band),
-                   KERNEL_TOL[str(dtype).removeprefix("torch.")])
-    check_cases(device, failures, path_cases())
+    check_cases(device, failures,
+                banded_config_cases(device, lm["configs"], "serve", 8000))
+
+
+def banded_config_cases(device, configs, path: str, seed: int):
+    """Yield (label, kernel output, plain output, tolerance) for every
+    banded-mixer configuration ``(x shape, band shape, dtype, tile)`` of
+    ``configs`` (as :func:`_recording_banded_configs` records them) at
+    its own shape and type, on seeded inputs."""
+    from repro_torch.kernels import banded_mixer as bm
+
+    for i, (shape, band_shape, dtype, bt, bd) in enumerate(
+            sorted(configs, key=str)):
+        x = seeded_normal(shape, seed + i, device).to(dtype)
+        band = seeded_normal(band_shape, seed + 100 + i, device) / \
+            band_shape[0]
+        yield (f"banded_mixer on the {path} path: x{shape} band"
+               f"{band_shape} {str(dtype).removeprefix('torch.')} tile "
+               f"({bt}, {bd})", bm.banded_mixer_cuda_call(x, band, bt, bd),
+               bm.banded_mixer_plain(x, band),
+               KERNEL_TOL[str(dtype).removeprefix("torch.")])
 
 
 # ---------------------------------------------------------------------------
@@ -2150,10 +2196,10 @@ _TRAIN_SPANS = ("ssm_scan", "ssm_scan_backward", "banded_mix_backward",
                 "attention", "cross_entropy", "adamw")
 
 
-def _train_split(prof) -> dict:
+def _train_split(prof, span_names=_TRAIN_SPANS) -> dict:
     """Device time (ms) of a profiled train step: the banded mixer's
     forward launches (its kernel outside every span), each of
-    :data:`_TRAIN_SPANS`, the matmuls outside the spans, and the rest;
+    ``span_names``, the matmuls outside the spans, and the rest;
     ``kernels``, the count of device kernels and copies.
 
     A step holds millions of profiler events, so this reads the raw
@@ -2172,7 +2218,7 @@ def _train_split(prof) -> dict:
             if e.linked_correlation_id() != 0:
                 continue                # a runtime call, not an op
             name = e.name()
-            if name in _TRAIN_SPANS:
+            if name in span_names:
                 spans.setdefault(e.start_thread_id(), []).append(
                     (e.start_ns(), e.end_ns(), name))
             ops[e.correlation_id()] = (e.start_ns(), e.start_thread_id())
@@ -2193,8 +2239,8 @@ def _train_split(prof) -> dict:
             return spans[thread][i][2]
         return None
 
-    split = dict.fromkeys(("total", "banded_mixer_forward") + _TRAIN_SPANS
-                          + ("matmuls", "other"), 0.0)
+    split = dict.fromkeys(("total", "banded_mixer_forward")
+                          + tuple(span_names) + ("matmuls", "other"), 0.0)
     for name, ns, corr in kernels:
         ms = ns / 1e6
         split["total"] += ms
@@ -2315,7 +2361,8 @@ def train_hymba(device, failures: list) -> dict:
             f"{prof_s:.1f} s)")
     del state, tr, prof
     torch.cuda.empty_cache()
-    return {"launches": launches, "backward_launches": backward}
+    return {"launches": launches, "backward_launches": backward,
+            "step_s": step_s}
 
 
 # ---------------------------------------------------------------------------
@@ -3170,6 +3217,363 @@ def dist_recovery(device, failures: list) -> dict:
                          for k in rollout_counts}}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the LM half of the distributed path on slots of the card
+# ---------------------------------------------------------------------------
+
+# profiler spans of the mesh train step: the sync's three parts, then as
+# phase 16
+_DIST_SPANS = ("sync_gather", "sync_reduce", "sync_scatter", "ssm_scan",
+               "ssm_scan_backward", "banded_mix_backward", "adamw")
+
+
+def dist_train_hymba(device, failures: list, one_device_step_s: float) -> dict:
+    """Phase 22a: ``Trainer.run`` of Hymba-1.5B at full width and depth on
+    a 4x2 ``("data", "model")`` mesh of slots of the card, 3 steps; the
+    banded mixer's counters and the sync census zeroed just before
+    ``run`` and read just after, and every mixer configuration it
+    launched held against its plain version; then one more step under
+    the profiler.  The run's final save is counted, not written: phase
+    22b writes a mesh checkpoint and restores it."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import banded_mixer as bm
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import adamw, cosine_schedule
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t = DIST_TRAIN
+    cfg = get_config("hymba_1_5b")
+    mesh = make_mesh(t["mesh"], ("data", "model"))
+    groups = len(ts.dp_groups(mesh))
+    ckpt_dir = ROOT / "_chip" / "dist_train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tr = Trainer(
+        cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=t["seq"],
+                        global_batch=t["batch"], seed=t["seed"]),
+        TrainerConfig(total_steps=t["steps"], checkpoint_every=10 ** 9,
+                      checkpoint_dir=str(ckpt_dir), log_every=1,
+                      async_checkpoint=False),
+        optimizer=adamw(lr=cosine_schedule(t["lr"], warmup=1,
+                                           total=t["steps"])),
+        mesh=mesh)
+    saves = []
+    tr.ckpt.save = lambda step, *args, **kwargs: saves.append(step)
+    configs: set = set()
+    torch.cuda.reset_peak_memory_stats()
+    ts.reset_sync_counts()
+    restore = _recording_banded_configs(configs)
+    bm.banded_mixer_cuda_call.launches = 0      # zeroed just before the path
+    bm.banded_mixer_cuda_call.backward_launches = 0
+    t0 = time.perf_counter()
+    try:
+        state = tr.run()
+    finally:
+        restore()
+    run_s = time.perf_counter() - t0
+    launches = bm.banded_mixer_cuda_call.launches
+    backward = bm.banded_mixer_cuda_call.backward_launches
+    census = dict(ts.sync_counts)
+    peak = torch.cuda.max_memory_allocated()
+    capacity = torch.cuda.get_device_properties(0).total_memory
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    log_ = tr.metrics_log
+    losses = [m["loss"] for m in log_]
+    norms = [m["grad_norm"] for m in log_]
+    per_step = cfg.num_layers * groups * -(
+        -(t["batch"] // groups) // bm.MAX_BATCH)
+    want = {"forward": 2 * per_step * t["steps"],
+            "backward": per_step * t["steps"]}
+    got = {"forward": launches - backward, "backward": backward}
+    finite = all(v == v and abs(v) != float("inf") for v in losses + norms)
+    step_s = statistics.median(m["sec_per_step"] for m in log_[1:])
+    tokens = t["batch"] * t["seq"]
+    ok = (finite and got == want and launches == 384 * t["steps"]
+          and int(state.step) == t["steps"] and peak < capacity
+          and saves == [t["steps"]])
+    for m in log_:
+        log(f"  step {m['step']}: loss {m['loss']:.4f}, grad norm "
+            f"{m['grad_norm']:.4f}, {m['sec_per_step']:.3f} s (host clock)")
+    per = {k: v // t["steps"] for k, v in census.items()}
+    log(f"  {cfg.name} {cfg.num_layers} layers on {mesh.describe()} "
+        f"{mesh.axis_names} slots of the card ({groups} dp groups of "
+        f"{t['batch'] // groups} x {t['seq']}): step {step_s:.3f} s (median "
+        f"of steps 1-{t['steps'] - 1}), {tokens / step_s:.0f} tokens/s, "
+        f"{step_s / one_device_step_s:.2f}x phase 16's one-device step "
+        f"({one_device_step_s:.3f} s); Trainer.run {run_s:.1f} s (saves at "
+        f"steps {saves}, counted, not written); peak memory "
+        f"{peak / 2**30:.2f} GiB of {capacity / 2**30:.2f}; banded mixer "
+        f"launches {got}, {launches // t['steps']} a step (predicted "
+        f"{want}: {cfg.num_layers} layers x {groups} groups x {t['steps']} "
+        f"steps, forward and remat recompute, and one dx); finite "
+        f"{finite}{'' if ok else '  FAIL'}")
+    log(f"  sync census a step: {per['gathers']} gathers "
+        f"{per['gather_bytes'] / 2**30:.3f} GiB, {per['reductions']} "
+        f"reductions {per['reduction_bytes'] / 2**30:.3f} GiB over the "
+        f"wire, {per['scatters']} scatters {per['scatter_bytes'] / 2**30:.3f}"
+        f" GiB, {per['broadcasts']} broadcasts")
+    if not ok:
+        failures.append(f"distributed train: finite={finite} launches="
+                        f"{got}/{want} step={int(state.step)} peak={peak} "
+                        f"saves={saves}")
+    check_cases(device, failures,
+                banded_config_cases(device, configs, "distributed train",
+                                    8200))
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr._step(state, tr.pipeline.batch_at(t["steps"]))
+        torch.cuda.synchronize()
+    split = _train_split(prof, _DIST_SPANS)
+    prof_s = time.perf_counter() - t0
+    if split["total"] == 0.0:
+        log("  profiled step: the profiler saw no device time: breakdown "
+            "not measured")
+    else:
+        parts = {"gather": split["sync_gather"],
+                 "reduction": split["sync_reduce"],
+                 "scatter": split["sync_scatter"],
+                 "mixer forward": split["banded_mixer_forward"],
+                 "mixer dx": split["banded_mixer_backward"],
+                 "SSM scan": split["ssm_scan"] + split["ssm_scan_backward"],
+                 "AdamW": split["adamw"]}
+        rest = split["total"] - sum(parts.values())
+        text = ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+        log(f"  profiled step: {split['kernels']} device kernels and copies,"
+            f" device {split['total']:.1f} ms = {text}, rest {rest:.1f} ms "
+            f"(matmuls {split['matmuls']:.1f}); device idle "
+            f"{max(0.0, 1 - split['total'] / (step_s * 1e3)):.1%} of the "
+            f"unprofiled step (profiling and its read took {prof_s:.1f} s)")
+    del state, tr, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "backward_launches": backward}
+
+
+def dist_train_check(device, failures: list) -> None:
+    """Phase 22b: Hymba-1.5B at full width, depth 4 (period 2), f32
+    compute, batch 4 x 1024: one device (4 microbatches) for two steps;
+    the same seed on 4x2 for one step and its checkpoint (timed); a
+    Trainer on 2x2x2 resuming from it for the second step; each step's
+    loss within 1e-4 of one device's and its gradient norm within 1e-4 of
+    it relatively (AdamW's first update is about lr x sign(g), so the
+    loss alone would not see a wrong scale of the mean).  Then the four
+    groups' gradients of the first step reduced in f32 and with a bf16
+    wire (``sync_mean``), and one bf16-compressed step's census."""
+    import dataclasses
+    import math
+    import shutil
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import adamw, cosine_schedule
+    from repro_torch.sharding import rules
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    c = DIST_TRAIN_CHECK
+    cfg = dataclasses.replace(get_config("hymba_1_5b"),
+                              num_layers=c["layers"],
+                              local_global_period=c["period"],
+                              compute_dtype="float32")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=c["seq"],
+                      global_batch=c["batch"], seed=c["seed"])
+    opt = adamw(lr=cosine_schedule(3e-4, warmup=1, total=2))
+    base = ROOT / "_chip" / "dist_check"
+    shutil.rmtree(base, ignore_errors=True)
+    mesh_a = make_mesh((4, 2), ("data", "model"))
+    mesh_b = make_mesh(c["restore_mesh"], ("pod", "data", "model"))
+
+    def trainer(name, total, microbatches=1, **kw):
+        return Trainer(cfg, dcfg, TrainerConfig(
+            total_steps=total, checkpoint_every=10 ** 9,
+            checkpoint_dir=str(base / name), log_every=1,
+            async_checkpoint=False, seed=c["seed"],
+            microbatches=microbatches), optimizer=opt, **kw)
+    one = trainer("one", 2, microbatches=c["batch"], device=device)
+    one.run()
+    ref = [(m["loss"], m["grad_norm"]) for m in one.metrics_log]
+    del one
+    a = trainer("mesh", 1, mesh=mesh_a)
+    save, saves = a.ckpt.save, []
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        save(*args, **kwargs)
+        saves.append(time.perf_counter() - t0)
+    a.ckpt.save = timed_save
+    a.run()
+    ckpt_bytes = sum(f.stat().st_size for f in (base / "mesh").rglob("*")
+                     if f.is_file())
+    got = [(a.metrics_log[0]["loss"], a.metrics_log[0]["grad_norm"])]
+    del a
+    b = trainer("mesh", 2, mesh=mesh_b)
+    state_b = b.run()
+    resumed = [m["step"] for m in b.metrics_log]
+    got.append((b.metrics_log[0]["loss"], b.metrics_log[0]["grad_norm"]))
+    placed = dict(rules.tree_items(state_b.params))["layers/0/attn/wq"]
+    del b, state_b
+    shutil.rmtree(base, ignore_errors=True)
+    (la, na), (lb, nb) = got
+    ea, eb = abs(la - ref[0][0]), abs(lb - ref[1][0])
+    ra, rb = abs(na - ref[0][1]) / ref[0][1], abs(nb - ref[1][1]) / ref[1][1]
+    ok = max(ea, eb, ra, rb) < DIST_TRAIN_TOL and resumed == [1] \
+        and placed.mesh is mesh_b
+    log(f"  depth {cfg.num_layers}, f32 compute: 4x2 step 0 loss {la:.6f} "
+        f"against one device {ref[0][0]:.6f} (|diff| {ea:.2e}), grad norm "
+        f"{na:.6f} against {ref[0][1]:.6f} (relative {ra:.2e}); checkpoint "
+        f"{ckpt_bytes / 2**30:.2f} GiB in one shard file a slot written in "
+        f"{saves[-1]:.1f} s; restored onto {mesh_b.describe()} "
+        f"{mesh_b.axis_names} (wq blocks {placed.spec}), step 1 loss "
+        f"{lb:.6f} against {ref[1][0]:.6f} (|diff| {eb:.2e}), grad norm "
+        f"{nb:.6f} against {ref[1][1]:.6f} (relative {rb:.2e}); bar "
+        f"{DIST_TRAIN_TOL}{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append(f"distributed train check: |diff| {ea:.2e}, "
+                        f"{eb:.2e}, grad norm relative {ra:.2e}, {rb:.2e}, "
+                        f"resumed {resumed}")
+
+    # the sync with a bf16 wire against the f32 mean, on the same groups'
+    # gradients of step 0
+    gen = torch.Generator(device=device).manual_seed(c["seed"])
+    state = ts.init_train_state(gen, cfg, opt, mesh=mesh_a)
+    model, = state.compute.values()     # the one card's compute copy
+    batch = {k: torch.as_tensor(v).to(device)
+             for k, v in SyntheticLM(dcfg).batch_at(0).items()}
+    loss_fn = ts.make_loss_fn(cfg)
+    groups = len(ts.dp_groups(mesh_a))
+    w = c["batch"] // groups
+    grads = [ts._accumulate(
+        model, loss_fn, {k: v[g * w:(g + 1) * w] for k, v in batch.items()},
+        1)[0] for g in range(groups)]
+    exact = ts.sync_mean([{k: v.clone() for k, v in g.items()}
+                          for g in grads], device)
+    wired = ts.sync_mean(grads, device, "bf16")
+    err = max(float((wired[k] - exact[k]).abs().max()) for k in exact) / (
+        max(float(v.abs().max()) for v in exact.values()) + 1e-9)
+    del grads, exact, wired
+    ts.reset_sync_counts()
+    _, m = ts.make_train_step(cfg, opt, mesh=mesh_a, compression="bf16")(
+        state, SyntheticLM(dcfg).batch_at(0))
+    nbytes = sum(math.prod(p.shape) * 4
+                 for _, p in rules.tree_items(state.params))
+    wire = ts.sync_counts["reduction_bytes"]
+    ok = err < DIST_COMPRESS_REL_TOL and wire * 2 == groups * nbytes and \
+        abs(float(m["loss"]) - la) < DIST_TRAIN_TOL
+    log(f"  bf16 wire: the mean gradient within {err:.2e} (relative to "
+        f"max|g|) of the f32 mean, bar {DIST_COMPRESS_REL_TOL}; a "
+        f"compressed step moved {wire / 2**20:.1f} MiB over the wire "
+        f"({groups} groups x {nbytes / 2**20:.1f} MiB f32 / 2), loss "
+        f"{float(m['loss']):.6f}{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append(f"compressed sync: rel err {err:.3e}, wire {wire}")
+    del state, model, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ep_train(device, failures: list) -> None:
+    """Phase 22c: one train step of each MoE architecture at full width,
+    depth 2, f32 compute, dense on one device against expert parallel on
+    a ``(1, 4)`` ``("data", "model")`` mesh (same seed, same batch); each
+    step profiled for the device ms of the forward's ``moe_dispatch`` and
+    ``moe_experts`` spans."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.train import train_step as ts
+
+    e = EP_TRAIN
+    mesh = make_mesh(e["mesh"], ("data", "model"))
+    tp = e["mesh"][1]
+    calls: list = []
+    real = moe._experts
+    slots = [str(torch.empty(0, device=d).device) for d in mesh.devices.flat]
+
+    def spy(xt, r, w, lo, keep, rows, act):
+        calls.append((w["wo"].shape[0], str(xt.device)))
+        return real(xt, r, w, lo, keep, rows, act)
+    moe._experts = spy
+    try:
+        for arch in e["archs"]:
+            cfg = dataclasses.replace(get_config(arch),
+                                      num_layers=e["layers"],
+                                      compute_dtype="float32")
+            batch = SyntheticLM(DataConfig(
+                vocab_size=cfg.vocab_size, seq_len=e["seq"],
+                global_batch=e["batch"], seed=e["seed"])).batch_at(0)
+            opt = adamw(lr=3e-4)
+            out = {}
+            for name, kw in (("dense", {"device": device}),
+                             ("expert parallel", {"mesh": mesh})):
+                gen = torch.Generator(device=device).manual_seed(e["seed"])
+                state = ts.init_train_state(gen, cfg, opt, **kw)
+                step = ts.make_train_step(cfg, opt, mesh=kw.get("mesh"))
+                calls.clear()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    _, m = step(state, batch)
+                    loss = float(m["loss"])
+                    torch.cuda.synchronize()
+                split = _device_split(prof, ("moe_dispatch", "moe_experts"))
+                out[name] = (loss, split, sorted({n for n, _ in calls}),
+                             sorted({d for _, d in calls}))
+                del state, step, m, prof
+                gc.collect()
+                torch.cuda.empty_cache()
+            (l1, s1, c1, _), (l4, s4, c4, d4) = out["dense"], \
+                out["expert parallel"]
+            n = cfg.moe.num_experts
+            ok = abs(l4 - l1) < DIST_TRAIN_TOL and c1 == [n] and \
+                c4 == [n // tp] and d4 == sorted(set(slots))
+            log(f"  {cfg.name} depth {cfg.num_layers}, {n} experts on "
+                f"{mesh.describe()}: loss {l4:.6f} expert parallel against "
+                f"{l1:.6f} dense (|diff| {abs(l4 - l1):.2e}, bar "
+                f"{DIST_TRAIN_TOL}); experts a call {c4} on {d4} against "
+                f"{c1}; "
+                f"forward device ms dispatch {s4['moe_dispatch']:.2f} / "
+                f"expert products {s4['moe_experts']:.2f} against "
+                f"{s1['moe_dispatch']:.2f} / {s1['moe_experts']:.2f} dense; "
+                f"step device {s4['total']:.1f} against {s1['total']:.1f} ms"
+                f"{'' if ok else '  FAIL'}")
+            if not ok:
+                failures.append(f"expert parallel {arch}: |diff| "
+                                f"{abs(l4 - l1):.2e}, experts {c4}/{c1}")
+    finally:
+        moe._experts = real
+
+
+def distributed_train(device, failures: list,
+                      one_device_step_s: float) -> dict:
+    """Phase 22; returns the banded mixer's launches of 22a."""
+    log("phase 22a: Hymba-1.5B trains at full width and depth on a 4x2 "
+        "(data, model) slot mesh, batch 4 x 1024, 3 steps through "
+        "Trainer(mesh=)")
+    run = dist_train_hymba(device, failures, one_device_step_s)
+    log("phase 22b: the 4x2 step against one device, a restore onto "
+        "2x2x2, the bf16 sync; depth 4, f32")
+    dist_train_check(device, failures)
+    log("phase 22c: MoE expert parallelism on a (1, 4) mesh against the "
+        "dense path, depth 2, f32")
+    ep_train(device, failures)
+    return run
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3299,6 +3703,7 @@ def main() -> int:
                     and by_path["rollouts"] <= 0):
                 failures.append(f"the serving paths never launched the "
                                 f"{row['name']} kernel")
+    train_step_s = train["step_s"]
     # phase 18's largest model fills most of the card: drop what earlier
     # phases kept there
     del main_run, served, chaotic, rolled, calibrated, vjp, train
@@ -3324,6 +3729,21 @@ def main() -> int:
                 distributed["launches"][row["name"]]
             row["launches_by_path"]["distributed_recovery"] = \
                 recovery["launches"][row["name"]]
+    del distributed, recovery
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_lm_dist = time.perf_counter()
+    dist_train = distributed_train(device, failures, train_step_s)
+    log(f"  phase 22 took {time.perf_counter() - t_lm_dist:.1f} s")
+    for row in rows:
+        if row["name"] == "banded_mixer":
+            row["launches_by_path"]["distributed_train"] = \
+                dist_train["launches"]
+            row["launches_by_path"]["distributed_train_backward"] = \
+                dist_train["backward_launches"]
+        elif row["name"] == "banded_mixer_backward":
+            row["launches_by_path"]["distributed_train"] = \
+                dist_train["backward_launches"]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     if failures:

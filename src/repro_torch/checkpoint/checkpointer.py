@@ -23,15 +23,18 @@ the caller's thread; a bfloat16 tensor is stored as its exact float32
 upcast with ``"bfloat16"`` in the manifest.  Restore builds tensors on
 the caller's device.
 
-A :class:`repro_torch.core.distributed.ShardedState` leaf is written as
-the JAX package writes a mesh-sharded array: one ``shard_<slot>.npz``
-file per slot holding that slot's block, each block's global index in
-the leaf's manifest entry (replicas written once), plus the mesh shape,
-axis names and grid axes under the entry's ``"mesh"`` key (the JAX
-package's restore ignores it).  Restore reassembles the global array
-from the indices — whichever package wrote it — and ``shardings=``
-re-shards it onto the CURRENT mesh, which may have another shape than
-the one that wrote it (elastic re-mesh after a failure).
+A placed leaf — a :class:`repro_torch.sharding.placement.Placed` tensor
+of a train state on a mesh, or a stencil path's
+:class:`repro_torch.core.distributed.ShardedState` — is written as the
+JAX package writes a mesh-sharded array: one ``shard_<slot>.npz`` file
+per slot holding that slot's block, each block's global index in the
+leaf's manifest entry (replicas written once), plus the mesh shape, axis
+names and the leaf's spec (a stencil state's grid axes) under the
+entry's ``"mesh"`` key (the JAX package's restore ignores it).  Restore
+reassembles the global array from the indices — whichever package wrote
+it — and ``shardings=`` re-shards it onto the CURRENT mesh, which may
+have another shape than the one that wrote it (elastic re-mesh after a
+failure).
 """
 from __future__ import annotations
 
@@ -252,20 +255,24 @@ def _sharded_to_host(state, copy: bool) -> _HostSharded:
         shards.append((f"shard_{int(state.mesh.slots[c])}", index,
                        host.data))
     name = str(state.dtype).removeprefix("torch.")
+    layout = {"grid_axes": list(state.grid_axes)} if \
+        hasattr(state, "grid_axes") else \
+        {"spec": [e if e is None or isinstance(e, str) else list(e)
+                  for e in state.spec]}
     return _HostSharded(
         tuple(shards), name, tuple(int(n) for n in state.shape),
         {"shape": list(state.mesh.shape),
-         "axes": list(state.mesh.axis_names),
-         "grid_axes": list(state.grid_axes)})
+         "axes": list(state.mesh.axis_names), **layout})
 
 
 def _to_host(leaf, copy: bool = False):
     """The leaf as host data; ``copy`` snapshots it even where the host
     array would share the caller's memory (CPU tensors, numpy arrays)."""
     from repro_torch.core.distributed import ShardedState
+    from repro_torch.sharding.placement import Placed
     if isinstance(leaf, (_HostLeaf, _HostSharded)):
         return leaf
-    if isinstance(leaf, ShardedState):
+    if isinstance(leaf, (ShardedState, Placed)):
         return _sharded_to_host(leaf, copy)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
@@ -419,9 +426,11 @@ def restore_checkpoint(directory: str, step: int, target_tree: Any,
     """Rebuild the tree saved at ``step`` in the structure of
     ``target_tree``.  Each leaf comes back as a tensor of the target
     leaf's dtype, on ``device`` — by default the target leaf's device
-    when it is a tensor, else the CPU.  ``shardings`` (a
-    :class:`repro_torch.core.distributed.MeshSharding` for every leaf, or
-    a tree of them and ``None`` like ``target_tree``) re-shards a leaf
+    when it is a tensor, else the CPU.  ``shardings`` (a placement for
+    every leaf — a :class:`repro_torch.sharding.placement.NamedPlacement`
+    or a stencil state's :class:`repro_torch.core.distributed
+    .MeshSharding` — or a tree of them and ``None`` like ``target_tree``,
+    such as ``launch.cells._state_shardings`` builds) re-places a leaf
     onto its mesh instead, whatever mesh wrote it.  Returns ``(tree,
     extra)``."""
     path = os.path.join(directory, f"step_{step:08d}")

@@ -56,6 +56,7 @@ from repro_torch.core.stencil_spec import StencilSpec
 from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.runtime import chaos
 from repro_torch.runtime.chaos import FaultError
+from repro_torch.sharding.placement import P, block_index, unique_coords
 
 __all__ = ["ShardedState", "MeshSharding", "shard", "unshard", "reshard",
            "halo_exchange", "distributed_stencil_step",
@@ -86,21 +87,17 @@ def _mesh_axis_index(mesh: DeviceMesh, name: str) -> int:
     return mesh.axis_names.index(name)
 
 
-def _block_index(coord: tuple[int, ...], mesh: DeviceMesh,
-                 grid_axes: tuple[str, ...], local: Sequence[int],
-                 lead: int) -> tuple:
-    """The global slices one mesh coordinate's block covers."""
-    idx = [slice(None)] * lead
-    for ax, n in zip(grid_axes, local):
-        j = _mesh_axis_index(mesh, ax) if ax else None
-        k = coord[j] if j is not None else 0
-        idx.append(slice(k * n, (k + 1) * n))
-    return tuple(idx)
+def _grid_spec(grid_axes: Sequence[str], lead: int) -> P:
+    """The partition spec of a state: the leading axes whole, spatial
+    axis ``a`` over mesh axis ``grid_axes[a]`` (``''``: whole)."""
+    return P(*(None,) * lead, *(ax or None for ax in grid_axes))
 
 
 @dataclasses.dataclass(eq=False)
 class ShardedState:
-    """A global state as blocks on a mesh's slots.
+    """A global state as blocks on a mesh's slots — the special case of a
+    ``sharding.placement.Placed`` tensor whose spec names one mesh axis a
+    spatial axis (:attr:`spec`).
 
     ``blocks[coord]`` is the block of mesh coordinate ``coord`` on
     ``mesh.devices[coord]``; spatial axis ``a`` is split over the mesh
@@ -152,18 +149,16 @@ class ShardedState:
         out = self.map(lambda b: b.to(dev))
         return dataclasses.replace(out, mesh=mesh)
 
+    @property
+    def spec(self) -> P:
+        return _grid_spec(self.grid_axes, self.ndim - len(self.grid_axes))
+
     def unique_blocks(self):
         """``(coord, global slices, block)`` of every block once: replicas
         (mesh axes no grid axis names) at coordinate 0 only."""
-        named = {_mesh_axis_index(self.mesh, ax)
-                 for ax in self.grid_axes if ax}
-        local = self.local_shape
-        lead = len(local) - len(self.grid_axes)
-        for c in np.ndindex(self.blocks.shape):
-            if any(k and j not in named for j, k in enumerate(c)):
-                continue
-            yield c, _block_index(c, self.mesh, self.grid_axes,
-                                  local[lead:], lead), self.blocks[c]
+        for c in unique_coords(self.mesh, self.spec):
+            yield c, block_index(c, self.mesh, self.spec, self.shape), \
+                self.blocks[c]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -195,19 +190,18 @@ def shard(x: Tensor, mesh: DeviceMesh, grid_axes: Sequence[str],
         raise ValueError(f"a state of shape {tuple(x.shape)} does not fit "
                          f"{nd} grid axes{extra}")
     sizes = mesh.axis_sizes()
-    local = []
     for n, ax in zip(x.shape[lead:], grid_axes):
-        d = sizes[ax] if ax else 1
         if ax and ax not in sizes:
             raise ValueError(f"grid axis {ax!r} is not a mesh axis "
                              f"{mesh.axis_names}")
+        d = sizes[ax] if ax else 1
         if n % d:
             raise ValueError(f"grid extent {n} not divisible by mesh axis "
                              f"{ax!r} of size {d}")
-        local.append(n // d)
+    spec = _grid_spec(grid_axes, lead)
     blocks = np.empty(mesh.shape, dtype=object)
     for c in np.ndindex(mesh.shape):
-        idx = _block_index(c, mesh, grid_axes, local, lead)
+        idx = block_index(c, mesh, spec, x.shape)
         part = x[idx]
         b = torch.empty(part.shape, dtype=x.dtype, device=mesh.devices[c])
         b.copy_(part)

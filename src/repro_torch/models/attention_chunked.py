@@ -24,6 +24,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.rules import axis_size
+
 __all__ = ["chunked_attention", "NEG"]
 
 NEG = -1e30
@@ -101,8 +103,16 @@ def _grouped_scores(qc, k, group, scale, softcap):
 
 def _dense_chunks(qs, qpos, k, v, k_pos, causal, window, softcap, group,
                   scale):
-    """One (Lq x Skv) score tile per q chunk.  (The reference's repeat of
-    KV heads for tensor-parallel sharding is dead on one device.)"""
+    """One (Lq x Skv) score tile per q chunk.  KV heads are repeated to H
+    up front where the reference repeats them for tensor-parallel head
+    sharding (H divides the active ``tp`` extent, KVH does not, group <=
+    4); the values are the same either way."""
+    kvh = k.shape[2]
+    tp = max(axis_size("tp"), 1)
+    if 1 < group <= 4 and (kvh * group) % tp == 0 and kvh % tp != 0:
+        k = torch.repeat_interleave(k, group, dim=2)
+        v = torch.repeat_interleave(v, group, dim=2)
+        group = 1
     b, _, kvh, dh = k.shape
     outs = []
     for qc, qp in zip(qs, qpos):

@@ -19,6 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.rules import shard
+
 __all__ = ["dense_init", "dense", "rms_norm_init", "rms_norm", "rope",
            "mlp_init", "mlp", "embed_init", "init_attention"]
 
@@ -91,8 +93,8 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, device) -> dict:
 
 def mlp(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """Gated MLP: SwiGLU (``silu``) or GeGLU (tanh-approximate ``gelu``)."""
-    g = dense(p["wi_gate"], x)
-    u = dense(p["wi_up"], x)
+    g = shard(dense(p["wi_gate"], x), "dp", None, "tp")
+    u = shard(dense(p["wi_up"], x), "dp", None, "tp")
     a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
     return dense(p["wo"], a * u)
 

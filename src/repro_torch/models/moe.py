@@ -16,9 +16,19 @@ group).  A row past an expert's count is zero in the reference and never
 gathered, so the output is the same; dropless serving would otherwise
 build ``(E, T, D)`` and do ``E/k`` times the useful expert work.
 
-The reference's expert-parallel ``shard_map`` branch belongs to the
-distributed slice (ROADMAP Queue 1 item 4); the port has no mesh, so it
-has no such branch.
+Expert parallelism, the reference's ``shard_map`` branch: under an
+active mesh (``sharding.rules.activate``) whose ``model`` extent ``tp``
+divides ``num_experts``, the group's tokens are routed once (the
+reference routes the same tokens the same way on every slot) and model
+slot ``m`` runs experts ``[m E/tp, (m+1) E/tp)`` on its own device
+(``rules.model_devices()[m]``): the tokens and the routing go there, its
+experts' weights are that range of the parameters (a view where the slot
+shares the group's device, a copy otherwise), its buffer is sized by its
+own experts' largest count, and its partial output comes back to the
+group's device, where the slots' partials are summed in f32, as the
+reference's ``psum``.  The aux loss is the global routing's, the same on
+every slot.  Otherwise (no mesh, or Granite's 40 experts on a ``model``
+extent of 16) the dense path runs.
 """
 from __future__ import annotations
 
@@ -30,6 +40,8 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.rules import (axis_size, current_mesh,
+                                        model_devices, shard)
 
 __all__ = ["MoEOut", "Routing", "init_moe", "moe_ffn", "route",
            "DISPATCH_OBSERVERS"]
@@ -101,10 +113,18 @@ def route(xt: torch.Tensor, router: torch.Tensor, mcfg,
                    keep=pos < cap, counts=counts, cap=cap)
 
 
-def _moe_group(xt: torch.Tensor, p, mcfg, act: str, dropless: bool):
-    """One dispatch group: (T, D) -> ((T, D), aux)."""
+def _on(r: Routing, device) -> Routing:
+    """The routing fields :func:`_experts` reads, on ``device``."""
+    return r._replace(gates=r.gates.to(device), experts=r.experts.to(device),
+                      pos=r.pos.to(device))
+
+
+def _moe_group(xt: torch.Tensor, p, mcfg, act: str, dropless: bool,
+               slots=None):
+    """One dispatch group: (T, D) -> ((T, D), aux).  ``slots``: the
+    expert-parallel branch's ``model`` slot devices."""
     t, d = xt.shape
-    e, k = mcfg.num_experts, mcfg.top_k
+    e = mcfg.num_experts
     with record_function("moe_dispatch"):
         r = route(xt, p["router"], mcfg, dropless)
         # load-balance aux loss (Switch): E * sum_e f_e * p_e
@@ -114,24 +134,55 @@ def _moe_group(xt: torch.Tensor, p, mcfg, act: str, dropless: bool):
             * mcfg.aux_loss_weight
         for observe in DISPATCH_OBSERVERS:
             observe(r.counts, torch.sum(~r.keep))
+    if slots is None:
         rows = min(r.cap, int(r.counts.max()))      # one host read
+        return _experts(xt, r, p, 0, r.keep, rows, act), aux.to(torch.float32)
+    with record_function("moe_dispatch"):
+        counts = r.counts.tolist()      # one host read sizes every buffer
         flat_expert = r.experts.reshape(-1)
-        # a dropped assignment writes the spare row ``rows``, never read
-        slot = torch.where(r.keep, r.pos, rows)
-        buf = xt.new_zeros((e, rows + 1, d))
-        buf = buf.index_put((flat_expert, slot),
+    n = e // len(slots)
+    y = torch.zeros((t, d), dtype=torch.float32, device=xt.device)
+    for m, dev in enumerate(slots):         # slot m: experts [lo, lo + n)
+        lo = m * n
+        with record_function("moe_dispatch"):
+            mine = r.keep & (flat_expert >= lo) & (flat_expert < lo + n)
+            w = {k: p[k][lo:lo + n].to(dev)
+                 for k in ("wi_gate", "wi_up", "wo")}
+            rows = min(r.cap, max(counts[lo:lo + n]))
+        part = _experts(xt.to(dev), _on(r, dev), w, lo, mine.to(dev), rows,
+                        act)
+        y = y + part.to(xt.device, torch.float32)
+    return y.to(xt.dtype), aux.to(torch.float32)
+
+
+def _experts(xt: torch.Tensor, r: Routing, w, lo: int, keep: torch.Tensor,
+             rows: int, act: str) -> torch.Tensor:
+    """The experts ``[lo, lo + n)``, whose weights ``w`` holds, on the
+    assignments ``keep`` selects, each expert's buffer ``rows`` deep;
+    gated and summed per token: (T, D) on ``xt``'s device."""
+    t, d = xt.shape
+    n = w["wo"].shape[0]
+    k = r.experts.shape[1]
+    if rows == 0:                       # no token chose these experts
+        return xt.new_zeros((t, d))
+    with record_function("moe_dispatch"):
+        expert = torch.clamp(r.experts.reshape(-1) - lo, 0, n - 1)
+        # an assignment not kept writes the spare row ``rows``, never read
+        slot = torch.where(keep, r.pos, rows)
+        buf = xt.new_zeros((n, rows + 1, d))
+        buf = buf.index_put((expert, slot),
                             xt.repeat_interleave(k, dim=0))[:, :rows]
     dtype = xt.dtype
-    g = torch.bmm(buf, p["wi_gate"].to(dtype))
-    u = torch.bmm(buf, p["wi_up"].to(dtype))
-    a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    eo = torch.bmm(a * u, p["wo"].to(dtype))               # (E, rows, D)
+    with record_function("moe_experts"):
+        g = torch.bmm(buf, w["wi_gate"].to(dtype))
+        u = torch.bmm(buf, w["wi_up"].to(dtype))
+        a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+        eo = torch.bmm(a * u, w["wo"].to(dtype))   # (n, rows, D)
     with record_function("moe_dispatch"):
-        out = eo[flat_expert, torch.clamp(slot, max=rows - 1)]   # (T*k, D)
-        out = torch.where(r.keep[:, None], out, 0.0) \
+        out = eo[expert, torch.clamp(slot, max=rows - 1)]   # (T*k, D)
+        out = torch.where(keep[:, None], out, 0.0) \
             * r.gates.reshape(-1, 1).to(dtype)
-        y = torch.sum(out.reshape(t, k, d), dim=1)
-    return y, aux.to(torch.float32)
+        return torch.sum(out.reshape(t, k, d), dim=1)
 
 
 def moe_ffn(p, x: torch.Tensor, mcfg, act: str = "silu",
@@ -147,8 +198,12 @@ def moe_ffn(p, x: torch.Tensor, mcfg, act: str = "silu",
     b, s, d = x.shape
     t_all = b * s
     g = mcfg.groups if (mcfg.groups and t_all % mcfg.groups == 0) else 1
-    xg = x.reshape(g, t_all // g, d)
-    ys, auxs = zip(*(_moe_group(xg[i], p, mcfg, act, dropless)
+    xg = shard(x.reshape(g, t_all // g, d), "dp", None, None)
+    tp = axis_size("tp")
+    slots = model_devices() if (current_mesh() is not None and tp > 1 and
+                                mcfg.num_experts % tp == 0) else None
+    ys, auxs = zip(*(_moe_group(xg[i], p, mcfg, act, dropless, slots)
                      for i in range(g)))
-    return MoEOut(y=torch.stack(ys).reshape(b, s, d),
+    y = shard(torch.stack(ys), "dp", None, None)
+    return MoEOut(y=y.reshape(b, s, d),
                   aux_loss=torch.mean(torch.stack(auxs)))

@@ -49,10 +49,12 @@ from repro_torch.models.attention_chunked import chunked_attention
 from repro_torch.models.layers import (dense, dense_init, embed_init,
                                        init_attention, mlp, mlp_init,
                                        rms_norm, rms_norm_init, rope)
+from repro_torch.sharding.rules import axis_size, shard
 
 __all__ = ["build_pattern", "Layer", "Transformer", "init_params",
            "params_from_numpy", "params_to_numpy", "stack_by_cycle",
-           "assign_from_tree", "init_caches", "apply_layer", "dtype_of"]
+           "assign_from_tree", "init_caches", "stack_caches", "apply_layer",
+           "dtype_of"]
 
 #: leaves the reference reads as f32 (``.astype(float32)``); every other
 #: leaf is read in the compute dtype
@@ -190,6 +192,7 @@ class Transformer(nn.Module):
         dtype = dtype_of(cfg.compute_dtype)
         x = self._embed_inputs(tokens, patch_embeds, mode)
         positions = start_pos + torch.arange(x.shape[1], device=x.device)
+        x = shard(x, "dp", None, None)
         if cond is not None and self.cond_proj is not None:
             cond = dense(self.cond_proj, cond.to(dtype))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -423,6 +426,27 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device) -> list:
     return caches
 
 
+def stack_caches(cfg: ModelConfig, caches: list) -> tuple:
+    """The reference's cache tree of per-layer ``caches`` (as
+    :func:`init_caches` builds them): one entry per pattern position, each
+    cache field stacked over cycles (a ring or full cache's ``length``
+    becomes a ``(cycles,)`` int32 tensor).  ``caches`` built on the
+    ``meta`` device give a tree of shapes for ``rules.cache_shardings``."""
+    period = len(_checked_pattern(cfg))
+
+    def stack(items):
+        first = items[0]
+        if isinstance(first, tuple):
+            fields = [stack([it[j] for it in items])
+                      for j in range(len(first))]
+            return type(first)(*fields) if hasattr(first, "_fields") \
+                else tuple(fields)
+        if isinstance(first, torch.Tensor):
+            return torch.stack(items)
+        return torch.tensor(items, dtype=torch.int32)
+    return tuple(stack(caches[i::period]) for i in range(period))
+
+
 # ---------------------------------------------------------------------------
 # Layer application
 # ---------------------------------------------------------------------------
@@ -436,8 +460,18 @@ def _project_qkv(p, x, cfg, positions):
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
-    return rope(q, positions, cfg.rope_theta), \
-        rope(k, positions, cfg.rope_theta), v
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if kvh % max(axis_size("tp"), 1) == 0 or s > 1:
+        q = shard(q, "dp", None, "tp", None)
+        k = shard(k, "dp", None, "tp", None)
+        v = shard(v, "dp", None, "tp", None)
+    else:
+        # decode with TP > KV heads: head_dim over tp, as the cache is
+        q = shard(q, "dp", None, None, "tp")
+        k = shard(k, "dp", None, None, "tp")
+        v = shard(v, "dp", None, None, "tp")
+    return q, k, v
 
 
 def _self_attention(p, x, cfg, positions, cache, window, mode):

@@ -7,9 +7,10 @@ so compression error accumulates into later steps instead of being lost:
   * ``bf16``  — cast-only (2x wire reduction, no state)
   * ``int8``  — per-tensor absmax int8 (4x), error feedback required
 
-The data-parallel wiring that all-reduces the wire tree belongs to the
-port's distributed slice (ROADMAP Queue 1 item 4); these are the
-functions it will call.
+``train_step``'s data-parallel step on a slot mesh calls them on each
+group's gradient before the reduction (``make_train_step(...,
+compression=)``, ``TrainerConfig.compression``; off by default, as in
+the reference).
 """
 from __future__ import annotations
 

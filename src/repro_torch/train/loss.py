@@ -5,9 +5,8 @@ The reference's ``repro.train.loss``: a loop over sequence chunks whose
 body — one chunk's logits and log-sum-exp — runs under
 ``torch.utils.checkpoint`` (the reference's ``@jax.checkpoint one``), so
 the forward keeps one chunk of logits live (B x C x V) and the backward
-recomputes it.  The reference's ``shard(logits, "dp", None, "tp")`` has
-no meaning on one device and is left out; sharding belongs to ROADMAP
-Queue 1 item 7.
+recomputes it.  Each chunk's logits carry the reference's
+``shard(logits, "dp", None, "tp")`` constraint (``sharding.rules``).
 """
 from __future__ import annotations
 
@@ -15,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.sharding.rules import shard
 
 __all__ = ["chunked_cross_entropy", "cross_entropy_dense"]
 
@@ -37,6 +38,7 @@ def _chunk_nll(h, w, lbl, m, transpose_head: bool):
     with record_function("cross_entropy"):
         w = w.to(h.dtype)
         logits = (h @ w.T if transpose_head else h @ w).to(torch.float32)
+        logits = shard(logits, "dp", None, "tp")
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, lbl[..., None])[..., 0]
         m = m.to(torch.float32)

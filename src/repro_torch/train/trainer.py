@@ -9,8 +9,12 @@ checkpoint and replaying the deterministic data stream.  There is no jit
 and no donation; the step updates the state in place, so after a failure
 the state is always rebuilt from the checkpoint (or from the seed).
 
-Mesh training belongs to the LM half of the distributed slice (ROADMAP
-Queue 1 item 4): ``mesh=``/``shardings=`` raise ``NotImplementedError``.
+On a slot mesh (``mesh=``, a ``launch.mesh.DeviceMesh``) the step is
+``train_step``'s data-parallel step with FSDP placement: a fresh state
+and a restored one are placed on the current mesh by ``shardings`` (a
+``launch.cells._state_shardings`` tree; by default the sharding rules'),
+whatever mesh wrote the checkpoint, and the restart path rebuilds the
+placed state the same way.
 """
 from __future__ import annotations
 
@@ -27,16 +31,15 @@ from repro_torch.checkpoint.checkpointer import (CheckpointManager,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.data.pipeline import DataConfig, make_pipeline
+from repro_torch.launch.cells import _state_shardings
+from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.optim.adamw import adamw
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor, RestartPolicy
-from repro_torch.train.train_step import (TrainState, init_train_state,
+from repro_torch.train.train_step import (init_train_state,
                                           load_state_tree, make_train_step,
                                           state_tree)
 
 __all__ = ["TrainerConfig", "Trainer"]
-
-_MESH = ("mesh training belongs to the LM half of the port's distributed "
-         "slice (ROADMAP Queue 1 item 4), which is not ported yet")
 
 
 @dataclasses.dataclass
@@ -57,17 +60,27 @@ class TrainerConfig:
 
 class Trainer:
     """``Trainer(cfg, data_cfg, tcfg, optimizer).run()`` trains on
-    ``device`` (the card unless ``device="cpu"``); ``fault_injector(step)``
-    is called before each step and may raise."""
+    ``device`` (the card unless ``device="cpu"``), or on the slots of
+    ``mesh`` (whose slots are the card unless it was made with
+    ``devices="cpu"``); ``fault_injector(step)`` is called before each
+    step and may raise."""
 
     def __init__(self, cfg: ModelConfig, data_cfg: DataConfig,
                  tcfg: TrainerConfig, optimizer: adamw | None = None,
-                 mesh=None, shardings=None,
+                 mesh: Optional[DeviceMesh] = None,
+                 shardings: Optional[dict] = None,
                  fault_injector: Optional[Callable[[int], None]] = None, *,
                  device="cuda"):
-        if mesh is not None or shardings is not None:
-            raise NotImplementedError(_MESH)
+        if shardings is not None and mesh is None:
+            raise ValueError("shardings= places a state on a mesh: pass "
+                             "mesh= too")
+        if mesh is not None:
+            for d in dict.fromkeys(str(d) for d in mesh.devices.flat):
+                resolve_device(d)
+            device = mesh.devices.flat[0]
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.shardings = shardings
         self.cfg = cfg
         self.data_cfg = data_cfg
         self.tcfg = tcfg
@@ -81,26 +94,32 @@ class Trainer:
         self.fault_injector = fault_injector
         self.metrics_log: list[dict] = []
         self._step = make_train_step(cfg, self.optimizer,
-                                     microbatches=tcfg.microbatches)
+                                     microbatches=tcfg.microbatches,
+                                     mesh=mesh)
 
     # -- state ---------------------------------------------------------------
-    def _fresh_state(self) -> TrainState:
+    def _fresh_state(self):
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
         return init_train_state(gen, self.cfg, self.optimizer,
-                                device=self.device)
+                                device=self.device, mesh=self.mesh,
+                                shardings=self.shardings)
 
-    def _restore_or_init(self) -> TrainState:
+    def _restore_or_init(self):
         latest = self.ckpt.latest()
         state = self._fresh_state()
         if latest is None:
             return state
+        target = state_tree(state, device="meta")
+        shardings = None
+        if self.mesh is not None:
+            shardings = self.shardings or _state_shardings(self.mesh, target)
         restored, _ = restore_checkpoint(
-            self.tcfg.checkpoint_dir, latest,
-            state_tree(state, device="meta"), device=self.device)
+            self.tcfg.checkpoint_dir, latest, target, shardings=shardings,
+            device=self.device)
         return load_state_tree(state, restored)
 
     # -- loop ----------------------------------------------------------------
-    def run(self) -> TrainState:
+    def run(self):
         state = self._restore_or_init()
         while int(state.step) < self.tcfg.total_steps:
             step = int(state.step)

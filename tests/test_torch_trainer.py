@@ -3,12 +3,14 @@ launcher on the CPU, on Hymba SMOKE: the JAX package's
 ``tests/test_system.py`` (the loss falls; a resumed run equals the
 uninterrupted one) and ``tests/test_substrate.py``'s trainer cases
 (injected failures survived, the restart budget exhausted with a raise),
-and the launcher's two-step smoke run.
+the launcher's two-step smoke run, and both on a mesh of CPU slots.
 
 Bars: the mean loss of the last five of 40 steps at least 0.5 below the
 first five's (the reference's bar); resume bit-identical (the reference
 holds it to 1e-6; on one CPU thread order the port's run repeats exactly).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,7 @@ import torch
 from repro_torch.configs.base import get_smoke_config
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.optim.adamw import adamw
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -93,14 +96,30 @@ def test_trainer_restart_budget_exhausted(tmp_path):
 def test_trainer_needs_a_card_by_default(tmp_path):
     cfg = get_smoke_config(ARCH)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2)
+    # on a mesh of CPU slots: two steps, then a resumed run goes on from
+    # the mesh-written checkpoint
+    mesh = make_mesh((2, 1), ("data", "model"), devices="cpu")
+    tcfg = TrainerConfig(total_steps=2, checkpoint_every=2, log_every=1,
+                         checkpoint_dir=str(tmp_path / "mesh"),
+                         async_checkpoint=False)
+    tr = Trainer(cfg, dcfg, tcfg, mesh=mesh, device="cpu")
+    state = tr.run()
+    assert int(state.step) == 2 and [m["step"] for m in tr.metrics_log] \
+        == [0, 1]
+    assert np.isfinite([m["loss"] for m in tr.metrics_log]).all()
+    tr2 = Trainer(cfg, dcfg, dataclasses.replace(tcfg, total_steps=3),
+                  mesh=mesh)
+    assert int(tr2.run().step) == 3
+    assert [m["step"] for m in tr2.metrics_log] == [2]
     tcfg = TrainerConfig(total_steps=1, checkpoint_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        Trainer(cfg, dcfg, tcfg, mesh=object(), device="cpu")
     if torch.cuda.is_available():
         Trainer(cfg, dcfg, tcfg)
+        Trainer(cfg, dcfg, tcfg, mesh=make_mesh((2, 1), ("data", "model")))
         return
     with pytest.raises(RuntimeError, match="cuda"):
         Trainer(cfg, dcfg, tcfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(cfg, dcfg, tcfg, mesh=make_mesh((2, 1), ("data", "model")))
 
 
 def test_launcher_smoke_runs_two_steps(tmp_path, capsys):
@@ -114,7 +133,12 @@ def test_launcher_smoke_runs_two_steps(tmp_path, capsys):
     assert tr.ckpt.steps() == [1, 2]
 
 
-def test_launcher_mesh_names_the_distributed_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        launch_train.main(["--arch", ARCH, "--smoke", "--mesh", "2x1",
-                           "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+def test_launcher_mesh_names_the_distributed_item(tmp_path, capsys):
+    tr = launch_train.main(["--arch", ARCH, "--smoke", "--mesh", "2x1",
+                            "--steps", "2", "--batch", "2", "--seq", "16",
+                            "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "mesh=2x1 ('data', 'model')" in out and "step=1 loss=" in out
+    assert tr.mesh.shape == (2, 1)
+    assert [m["step"] for m in tr.metrics_log] == [0, 1]
+    assert tr.ckpt.steps() == [2]
