@@ -187,11 +187,16 @@ then the LM half of the distributed path on slots of the card:
    compute, remat full), batch 4 x 1024 ``SyntheticLM`` tokens, 3 steps
    through ``Trainer(mesh=make_mesh((4, 2), ("data", "model")))``: the
    data-parallel step with FSDP placement (a gather, four dp groups'
-   forward and backward, an f32 mean, a scatter, AdamW on the blocks);
+   forward and backward, an f32 mean, a scatter, AdamW on the blocks),
+   tensor parallel along ``model`` where the rules split (the MLP's d_ff
+   5504 over the two model slots; the 25 heads and the 32001-token
+   vocabulary run whole);
    the banded mixer's launches 32 layers x 4 groups x 3 (forward, remat
    recompute, dx) a step, counters zeroed just before the run, and each
    mixer configuration the run launched against its plain version (the
-   run's final save is counted, not written); step time against phase
+   run's final save is counted, not written); ``rules.tp_counts`` of the
+   run equal to its prediction from the layers, CE chunks, groups, steps
+   and remat recomputes; step time against phase
    16's one-device step, peak memory, the sync census and one profiled
    step split into gather, reduction, scatter, mixer, SSM scan, AdamW and
    the rest; (b) at depth 4 in f32 compute: the 4x2 step's loss within
@@ -204,7 +209,13 @@ then the LM half of the distributed path on slots of the card:
    train step on a ``(1, 4)`` ``("data", "model")`` mesh (MoE expert
    parallel, 4 model slots, each slot's experts on its own device, here
    the card) within 1e-4 of the dense path on one device, and the
-   forward's device ms of dispatch and expert products on both.
+   forward's device ms of dispatch and expert products on both; (d)
+   TinyLlama-1.1B at full width, depth 2, f32, batch 2 x 512: one train
+   step on a ``(1, 4)`` ``("data", "model")`` mesh, the MLP, the
+   attention's KV heads and the vocabulary each split over the four model
+   slots, within 1e-4 relative of one device in loss and gradient norm,
+   ``rules.tp_counts`` exact with no whole call, and a spy on
+   ``rules.model_devices`` read once a split.
 
 Any kernel-vs-plain error over its tolerance (phases 3, 5, 6, 8, 10 and
 20), any main-path cell off its oracle, or any serve, server, chaos,
@@ -338,6 +349,8 @@ DIST_TRAIN_TOL = 1e-4               # the reference's loss bar
 DIST_COMPRESS_REL_TOL = 0.02        # the reference's compressed-sync bar
 EP_TRAIN = dict(archs=("granite_moe_3b_a800m", "qwen3_moe_30b_a3b"),
                 layers=2, mesh=(1, 4), batch=2, seq=512, seed=0)
+TP_TRAIN = dict(arch="tinyllama_1_1b", layers=2, mesh=(1, 4), batch=2,
+                seq=512, seed=0)
 # phase 15: the differentiable stencil at full width; dC sums ~6.7e7
 # products a tap at 8192^2, so it is held to this share of sum|g x|
 VJP_CELLS = (dict(name="box2d_r1", grid=(8192, 8192)),
@@ -3244,6 +3257,7 @@ def dist_train_hymba(device, failures: list, one_device_step_s: float) -> dict:
     from repro_torch.kernels import banded_mixer as bm
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim.adamw import adamw, cosine_schedule
+    from repro_torch.sharding import rules
     from repro_torch.train import train_step as ts
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -3267,6 +3281,7 @@ def dist_train_hymba(device, failures: list, one_device_step_s: float) -> dict:
     configs: set = set()
     torch.cuda.reset_peak_memory_stats()
     ts.reset_sync_counts()
+    rules.reset_tp_counts()
     restore = _recording_banded_configs(configs)
     bm.banded_mixer_cuda_call.launches = 0      # zeroed just before the path
     bm.banded_mixer_cuda_call.backward_launches = 0
@@ -3279,6 +3294,7 @@ def dist_train_hymba(device, failures: list, one_device_step_s: float) -> dict:
     launches = bm.banded_mixer_cuda_call.launches
     backward = bm.banded_mixer_cuda_call.backward_launches
     census = dict(ts.sync_counts)
+    tp_census = {k: dict(v) for k, v in rules.tp_counts.items()}
     peak = torch.cuda.max_memory_allocated()
     capacity = torch.cuda.get_device_properties(0).total_memory
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -3294,9 +3310,11 @@ def dist_train_hymba(device, failures: list, one_device_step_s: float) -> dict:
     finite = all(v == v and abs(v) != float("inf") for v in losses + norms)
     step_s = statistics.median(m["sec_per_step"] for m in log_[1:])
     tokens = t["batch"] * t["seq"]
+    tp_want = expected_tp_counts(cfg, t["mesh"], t["batch"], t["seq"],
+                                 t["steps"])
     ok = (finite and got == want and launches == 384 * t["steps"]
           and int(state.step) == t["steps"] and peak < capacity
-          and saves == [t["steps"]])
+          and saves == [t["steps"]] and tp_census == tp_want)
     for m in log_:
         log(f"  step {m['step']}: loss {m['loss']:.4f}, grad norm "
             f"{m['grad_norm']:.4f}, {m['sec_per_step']:.3f} s (host clock)")
@@ -3318,10 +3336,17 @@ def dist_train_hymba(device, failures: list, one_device_step_s: float) -> dict:
         f"reductions {per['reduction_bytes'] / 2**30:.3f} GiB over the "
         f"wire, {per['scatters']} scatters {per['scatter_bytes'] / 2**30:.3f}"
         f" GiB, {per['broadcasts']} broadcasts")
+    log(f"  tensor-parallel census of the run: {_tp_text(tp_census)} "
+        f"(predicted {_tp_text(tp_want)}: {cfg.num_layers} layers and "
+        f"{-(-t['seq'] // 512)} CE chunks x {groups} groups x {t['steps']} "
+        f"steps x 2, forward and remat recompute; d_ff {cfg.d_ff}, "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads and "
+        f"{cfg.vocab_size} tokens on model {t['mesh'][1]})"
+        f"{'' if tp_census == tp_want else '  FAIL'}")
     if not ok:
         failures.append(f"distributed train: finite={finite} launches="
                         f"{got}/{want} step={int(state.step)} peak={peak} "
-                        f"saves={saves}")
+                        f"saves={saves} tp_counts={tp_census}/{tp_want}")
     check_cases(device, failures,
                 banded_config_cases(device, configs, "distributed train",
                                     8200))
@@ -3558,19 +3583,139 @@ def ep_train(device, failures: list) -> None:
         moe._experts = real
 
 
+def expected_tp_counts(cfg, mesh_shape, batch: int, seq: int, steps: int,
+                       ce_chunk: int = 512) -> dict:
+    """``rules.tp_counts`` of ``steps`` mesh train steps of ``cfg`` (remat
+    full, one microbatch) on a ``("data", "model")`` mesh: each site once
+    a layer (the CE once a chunk), group, step and pass (the forward and
+    the remat recompute), split where the rules split it; a split sends
+    each slot after the first the activations in the compute dtype (the
+    CE's hidden chunk and labels) and takes back its partial (the CE's
+    two f32 values a token)."""
+    groups, tp = mesh_shape
+    rows = batch // groups                 # a group's sequences
+    elem = 2 if cfg.compute_dtype == "bfloat16" else 4
+    act = rows * seq * cfg.d_model * elem
+    chunk = min(ce_chunk, seq)
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    sites = {
+        "mlp": (cfg.num_layers, cfg.d_ff % tp == 0, act, act),
+        "attention": (cfg.num_layers,
+                      kvh % tp == 0 or (h % tp == 0 and h // kvh <= 4),
+                      act, act),
+        "cross_entropy": (-(-seq // chunk), cfg.vocab_size % tp == 0,
+                          rows * chunk * (cfg.d_model * elem + 8),
+                          2 * rows * chunk * 4)}
+    out = {}
+    for site, (calls, split, sent, back) in sites.items():
+        n = calls * groups * steps * 2
+        out[site] = {"splits": n * split, "whole": n * (not split),
+                     "sent_bytes": n * split * sent * (tp - 1),
+                     "returned_bytes": n * split * back * (tp - 1)}
+    return out
+
+
+def _tp_text(census: dict) -> str:
+    return "; ".join(
+        f"{site} {c['splits']} split / {c['whole']} whole, "
+        f"{c['sent_bytes'] / 2**20:.1f} MiB sent, "
+        f"{c['returned_bytes'] / 2**20:.1f} MiB back"
+        for site, c in sorted(census.items()))
+
+
+def tp_train(device, failures: list) -> None:
+    """Phase 22d: one train step of TinyLlama-1.1B at full width, depth 2,
+    f32 compute, on one device and on a ``(1, 4)`` ``("data", "model")``
+    mesh of slots of the card (same seed, same batch), where the MLP's
+    d_ff, the attention's KV heads and the vocabulary all split four
+    ways: loss and gradient norm within 1e-4 relative, ``rules.tp_counts``
+    exact with no whole call, and ``rules.model_devices`` read once a
+    split (a spy) giving the mesh's four slots."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.sharding import rules
+    from repro_torch.train import train_step as ts
+
+    c = TP_TRAIN
+    cfg = dataclasses.replace(get_config(c["arch"]), num_layers=c["layers"],
+                              compute_dtype="float32")
+    mesh = make_mesh(c["mesh"], ("data", "model"))
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=c["seq"], global_batch=c["batch"],
+                                   seed=c["seed"])).batch_at(0)
+    opt = adamw(lr=3e-4)
+    real = rules.model_devices
+    reads: list = []
+
+    def spy():
+        devices = real()
+        reads.append(tuple(str(d) for d in devices))
+        return devices
+    out = {}
+    for name, kw in (("one device", {"device": device}), ("tp", {"mesh": mesh})):
+        gen = torch.Generator(device=device).manual_seed(c["seed"])
+        state = ts.init_train_state(gen, cfg, opt, **kw)
+        step = ts.make_train_step(cfg, opt, mesh=kw.get("mesh"))
+        rules.reset_tp_counts()
+        reads.clear()
+        rules.model_devices = spy
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = step(state, batch)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        finally:
+            rules.model_devices = real
+        out[name] = (loss, norm, sec, {k: dict(v) for k, v in
+                                       rules.tp_counts.items()}, list(reads))
+        del state, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l1, n1, s1, c1, r1), (lt, nt, st, ct, rt) = out["one device"], out["tp"]
+    want = expected_tp_counts(cfg, c["mesh"], c["batch"], c["seq"], 1)
+    splits = sum(v["splits"] for v in want.values())
+    slots = tuple(str(d) for d in mesh.devices.flat)
+    el, en = abs(lt - l1) / abs(l1), abs(nt - n1) / n1
+    ok = (max(el, en) < DIST_TRAIN_TOL and ct == want and c1 == {} and
+          r1 == [] and all(v["whole"] == 0 for v in ct.values()) and
+          len(rt) == splits and set(rt) == {slots})
+    log(f"  {cfg.name} depth {cfg.num_layers}, f32, batch {c['batch']} x "
+        f"{c['seq']} on {mesh.describe()} {mesh.axis_names}: loss {lt:.6f} "
+        f"against one device {l1:.6f} (relative {el:.2e}), grad norm "
+        f"{nt:.6f} against {n1:.6f} (relative {en:.2e}), bar "
+        f"{DIST_TRAIN_TOL}; step {st:.3f} s against {s1:.3f} s (host clock, "
+        f"first call); census {_tp_text(ct)} (predicted {_tp_text(want)}); "
+        f"model_devices read {len(rt)} times (splits {splits}), slots "
+        f"{sorted(set(rt))}{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append(f"tensor parallel {c['arch']}: relative {el:.2e} / "
+                        f"{en:.2e}, tp_counts {ct} / {want}, reads {len(rt)}")
+
+
 def distributed_train(device, failures: list,
                       one_device_step_s: float) -> dict:
     """Phase 22; returns the banded mixer's launches of 22a."""
     log("phase 22a: Hymba-1.5B trains at full width and depth on a 4x2 "
-        "(data, model) slot mesh, batch 4 x 1024, 3 steps through "
-        "Trainer(mesh=)")
+        "(data, model) slot mesh, tensor parallel where d_ff divides, "
+        "batch 4 x 1024, 3 steps through Trainer(mesh=)")
     run = dist_train_hymba(device, failures, one_device_step_s)
-    log("phase 22b: the 4x2 step against one device, a restore onto "
-        "2x2x2, the bf16 sync; depth 4, f32")
+    log("phase 22b: the 4x2 step (the MLP split over model) against one "
+        "device, a restore onto 2x2x2, the bf16 sync; depth 4, f32")
     dist_train_check(device, failures)
     log("phase 22c: MoE expert parallelism on a (1, 4) mesh against the "
         "dense path, depth 2, f32")
     ep_train(device, failures)
+    log("phase 22d: TinyLlama-1.1B tensor parallel on a (1, 4) mesh (MLP, "
+        "heads and vocabulary split four ways) against one device, depth "
+        "2, f32")
+    tp_train(device, failures)
     return run
 
 

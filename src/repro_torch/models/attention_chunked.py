@@ -15,6 +15,15 @@ published configs).  The reference's ``lax.map`` over query chunks is a
 Python loop here.  This module is jnp in the reference, not a TPU kernel,
 so plain tensor products are its counterpart — not
 ``F.scaled_dot_product_attention``, which would skip the bf16 cast.
+
+Tensor parallelism over heads (:func:`head_slots`): under
+``sharding.rules.activate`` each ``model`` slot runs
+:func:`chunked_attention` on its contiguous block of heads.  A GQA group
+never straddles two slots: the KV heads split where KVH divides the
+``model`` extent; otherwise, where H divides it and a group is at most
+4 heads, K/V repeat to H first — the reference's repeat for head
+sharding (its ``_dense_chunks``), here done by the split — and the heads
+split; otherwise attention runs whole.
 """
 from __future__ import annotations
 
@@ -24,11 +33,32 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.rules import axis_size
+from repro_torch.sharding.rules import axis_size, tp_slots
 
-__all__ = ["chunked_attention", "NEG"]
+__all__ = ["chunked_attention", "head_slots", "NEG"]
 
 NEG = -1e30
+
+
+def head_slots(h: int, kvh: int, sent: int = 0,
+               returned: int = 0) -> Optional[list]:
+    """The attention heads' split over the active group's ``model`` slots
+    (counted as ``rules.tp_slots`` site ``"attention"``):
+    ``[(device, (q_lo, q_hi), (kv_lo, kv_hi), repeat)]``, slot ``m``'s
+    query heads and the KV heads they read, ``repeat`` where the slot's
+    K/V repeat to one head per query head first; ``None`` where
+    attention runs whole."""
+    tp = axis_size("tp")
+    group = h // kvh
+    if kvh % tp == 0:
+        slots = tp_slots("attention", kvh, sent, returned)
+        return None if slots is None else [
+            (d, (lo * group, hi * group), (lo, hi), False)
+            for d, lo, hi in slots]
+    slots = tp_slots("attention", h if group <= 4 else None, sent, returned)
+    return None if slots is None else [
+        (d, (lo, hi), (lo // group, -(-hi // group)), True)
+        for d, lo, hi in slots]
 
 
 def chunked_attention(q, k, v, *, q_positions, k_positions, causal=True,
@@ -103,16 +133,8 @@ def _grouped_scores(qc, k, group, scale, softcap):
 
 def _dense_chunks(qs, qpos, k, v, k_pos, causal, window, softcap, group,
                   scale):
-    """One (Lq x Skv) score tile per q chunk.  KV heads are repeated to H
-    up front where the reference repeats them for tensor-parallel head
-    sharding (H divides the active ``tp`` extent, KVH does not, group <=
-    4); the values are the same either way."""
-    kvh = k.shape[2]
-    tp = max(axis_size("tp"), 1)
-    if 1 < group <= 4 and (kvh * group) % tp == 0 and kvh % tp != 0:
-        k = torch.repeat_interleave(k, group, dim=2)
-        v = torch.repeat_interleave(v, group, dim=2)
-        group = 1
+    """One (Lq x Skv) score tile per q chunk (the reference's repeat of
+    K/V for head sharding is :func:`head_slots`'s)."""
     b, _, kvh, dh = k.shape
     outs = []
     for qc, qp in zip(qs, qpos):

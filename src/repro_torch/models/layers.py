@@ -19,7 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.rules import shard
+from repro_torch.sharding.rules import shard, tp_slots
 
 __all__ = ["dense_init", "dense", "rms_norm_init", "rms_norm", "rope",
            "mlp_init", "mlp", "embed_init", "init_attention"]
@@ -91,12 +91,38 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, device) -> dict:
             "wo": dense_init(gen, d_ff, d, device)}
 
 
+def _gated(g: torch.Tensor, u: torch.Tensor, act: str) -> torch.Tensor:
+    return (F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")) * u
+
+
 def mlp(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """Gated MLP: SwiGLU (``silu``) or GeGLU (tanh-approximate ``gelu``)."""
-    g = shard(dense(p["wi_gate"], x), "dp", None, "tp")
-    u = shard(dense(p["wi_up"], x), "dp", None, "tp")
-    a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    return dense(p["wo"], a * u)
+    """Gated MLP: SwiGLU (``silu``) or GeGLU (tanh-approximate ``gelu``).
+
+    Tensor parallel where ``d_ff`` splits over the active group's
+    ``model`` slots (``rules.tp_slots``): slot ``m`` computes its columns
+    of ``wi_gate`` and ``wi_up`` and its partial product with its rows of
+    ``wo`` on its own device, from that range of the weights (a view on
+    ``x``'s device, a copy elsewhere); the partials are summed in f32 on
+    ``x``'s device and cast back to ``x.dtype``.  The ranges are one
+    ``chunk`` of each weight, so the backward writes each weight's
+    gradient once (a slice's backward would fill a whole zero gradient
+    a slot)."""
+    nbytes = x.numel() * x.element_size()
+    slots = tp_slots("mlp", p["wi_gate"].shape[-1], nbytes, nbytes)
+    if slots is None:
+        g = shard(dense(p["wi_gate"], x), "dp", None, "tp")
+        u = shard(dense(p["wi_up"], x), "dp", None, "tp")
+        return dense(p["wo"], _gated(g, u, act))
+    tp = len(slots)
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for (dev, _, _), wg, wu, wo in zip(slots, p["wi_gate"].chunk(tp, -1),
+                                      p["wi_up"].chunk(tp, -1),
+                                      p["wo"].chunk(tp, 0)):
+        xm = x.to(dev)
+        part = dense(wo.to(dev), _gated(dense(wg.to(dev), xm),
+                                        dense(wu.to(dev), xm), act))
+        y = y + part.to(x.device, torch.float32)
+    return y.to(x.dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, device):

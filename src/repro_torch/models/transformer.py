@@ -45,7 +45,8 @@ from repro_torch.models import kv_cache as kvc
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.attention_chunked import chunked_attention
+from repro_torch.models.attention_chunked import (chunked_attention,
+                                                  head_slots)
 from repro_torch.models.layers import (dense, dense_init, embed_init,
                                        init_attention, mlp, mlp_init,
                                        rms_norm, rms_norm_init, rope)
@@ -451,18 +452,25 @@ def stack_caches(cfg: ModelConfig, caches: list) -> tuple:
 # Layer application
 # ---------------------------------------------------------------------------
 
-def _project_qkv(p, x, cfg, positions):
+def _qkv(p, x, cfg, positions):
+    """q, k, v of the heads whose columns ``p``'s ``wq``/``wk``/``wv``
+    hold, qk-normed and rotated."""
     b, s, _ = x.shape
-    h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = dense(p["wq"], x).reshape(b, s, h, dh)
-    k = dense(p["wk"], x).reshape(b, s, kvh, dh)
-    v = dense(p["wv"], x).reshape(b, s, kvh, dh)
+    dh = cfg.head_dim
+    q = dense(p["wq"], x).reshape(b, s, -1, dh)
+    k = dense(p["wk"], x).reshape(b, s, -1, dh)
+    v = dense(p["wv"], x).reshape(b, s, -1, dh)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    if kvh % max(axis_size("tp"), 1) == 0 or s > 1:
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def _project_qkv(p, x, cfg, positions):
+    s = x.shape[1]
+    q, k, v = _qkv(p, x, cfg, positions)
+    if cfg.num_kv_heads % max(axis_size("tp"), 1) == 0 or s > 1:
         q = shard(q, "dp", None, "tp", None)
         k = shard(k, "dp", None, "tp", None)
         v = shard(v, "dp", None, "tp", None)
@@ -476,6 +484,12 @@ def _project_qkv(p, x, cfg, positions):
 
 def _self_attention(p, x, cfg, positions, cache, window, mode):
     b, s, _ = x.shape
+    if cache is None:       # train, or a prefill that writes no cache
+        nbytes = x.numel() * x.element_size()
+        slots = head_slots(cfg.num_heads, cfg.num_kv_heads, nbytes, nbytes)
+        if slots is not None:
+            return _split_attention(p, x, cfg, positions, window,
+                                    slots), None
     q, k, v = _project_qkv(p, x, cfg, positions)
     with record_function("attention"):
         if mode == "decode":
@@ -492,6 +506,43 @@ def _self_attention(p, x, cfg, positions, cache, window, mode):
                                     k_positions=positions, window=window,
                                     softcap=cfg.attn_softcap)
     return dense(p["wo"], out.reshape(b, s, -1)), new_cache
+
+
+def _split_attention(p, x, cfg, positions, window, slots):
+    """Self-attention split by heads over ``model`` slots
+    (``attention_chunked.head_slots``): slot ``m`` projects its heads
+    from its columns of ``wq``/``wk``/``wv``, rotates and attends them,
+    and multiplies by its rows of ``wo`` on its own device; the partials
+    are summed in f32 on ``x``'s device."""
+    b, s, _ = x.shape
+    dh, group = cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
+    repeat = slots[0][3]
+    # a slot's range of a weight is one chunk of it, so the backward
+    # writes the weight's gradient once; two slots may read one repeated
+    # K/V head, so those ranges are slices
+    chunks = {n: p[n].chunk(len(slots), 0 if n == "wo" else -1)
+              for n in ("wq", "wo") + (() if repeat else ("wk", "wv"))}
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for m, (dev, (q_lo, q_hi), (kv_lo, kv_hi), _) in enumerate(slots):
+        w = {n: c[m] for n, c in chunks.items()}
+        if repeat:
+            kv = slice(kv_lo * dh, kv_hi * dh)
+            w.update(wk=p["wk"][:, kv], wv=p["wv"][:, kv])
+        w.update((n, p[n]) for n in ("q_norm", "k_norm") if n in p)
+        w = {n: t.to(dev) for n, t in w.items()}
+        pos = positions.to(dev)
+        q, k, v = _qkv(w, x.to(dev), cfg, pos)
+        if repeat:      # one K/V head a query head, the slot's heads
+            heads = slice(q_lo - kv_lo * group, q_hi - kv_lo * group)
+            k = torch.repeat_interleave(k, group, dim=2)[:, :, heads]
+            v = torch.repeat_interleave(v, group, dim=2)[:, :, heads]
+        with record_function("attention"):
+            out = chunked_attention(q, k, v, q_positions=pos,
+                                    k_positions=pos, window=window,
+                                    softcap=cfg.attn_softcap)
+        part = dense(w["wo"], out.reshape(b, s, -1))
+        y = y + part.to(x.device, torch.float32)
+    return y.to(x.dtype)
 
 
 def _cross_attention(p, x, cfg, cond):

@@ -10,6 +10,11 @@ which decays every leaf unless grouped and orders its update otherwise.
 PyTorch has no buffer donation, so :meth:`adamw.update` writes the new
 parameters and moments into the tensors it is given, in place, and
 returns them: a 1.66 B-parameter model keeps one copy of its f32 state.
+
+A tree may hold leaves on several devices (a mesh state's blocks); no
+operation mixes two devices.  The global norm sums each device's leaves
+there and sends each device's partial to the first leaf's device once;
+the clip scale, ``lr`` and the bias corrections go once to each device.
 """
 from __future__ import annotations
 
@@ -58,18 +63,38 @@ class AdamWState(NamedTuple):
 
 
 def global_norm(tree) -> torch.Tensor:
+    """The f32 norm of every leaf, on the first leaf's device."""
     leaves = tree_leaves(tree)
-    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    partial: dict = {}
     for l in leaves:
-        total = total + torch.sum(torch.square(l.to(torch.float32)))
+        d = l.device
+        if d not in partial:
+            partial[d] = torch.zeros((), dtype=torch.float32, device=d)
+        partial[d] = partial[d] + torch.sum(torch.square(l.to(torch.float32)))
+    lead = leaves[0].device
+    total = partial.pop(lead)
+    for t in partial.values():
+        total = total + t.to(lead)
     return torch.sqrt(total)
+
+
+def _per_device(x: torch.Tensor) -> Callable:
+    """``fn(device)``: ``x`` there, copied once a device."""
+    copies = {x.device: x}
+
+    def on(device):
+        if device not in copies:
+            copies[device] = x.to(device)
+        return copies[device]
+    return on
 
 
 def clip_by_global_norm(tree, max_norm: float):
     norm = global_norm(tree)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
-                    tree), norm
+    scale = _per_device(torch.clamp(max_norm / (norm + 1e-9), max=1.0))
+    return tree_map(
+        lambda g: (g.to(torch.float32) * scale(g.device)).to(g.dtype),
+        tree), norm
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int,
@@ -124,8 +149,9 @@ class adamw:
         stepf = step.to(torch.float32)
         lr = self.lr(step) if callable(self.lr) else torch.tensor(
             self.lr, dtype=torch.float32, device=stepf.device)
-        bias1 = 1 - self.b1 ** stepf
-        bias2 = 1 - self.b2 ** stepf
+        lr_on = _per_device(lr)
+        bias1 = _per_device(1 - self.b1 ** stepf)
+        bias2 = _per_device(1 - self.b2 ** stepf)
 
         if decay is None:
             decay = tree_map(lambda p: p.ndim >= 2, params)
@@ -134,10 +160,11 @@ class adamw:
             g = g.to(torch.float32)
             m.mul_(self.b1).add_((1 - self.b1) * g)
             v.mul_(self.b2).add_((1 - self.b2) * g * g)
-            delta = (m / bias1) / (torch.sqrt(v / bias2) + self.eps)
+            delta = (m / bias1(m.device)) / (torch.sqrt(v / bias2(v.device))
+                                             + self.eps)
             if self.weight_decay and decayed:
                 delta = delta + self.weight_decay * p.to(torch.float32)
-            p.copy_(p.to(torch.float32) - lr * delta)
+            p.copy_(p.to(torch.float32) - lr_on(p.device) * delta)
 
         tree_map(upd, grads, state.mu, state.nu, params, decay)
         metrics = {"grad_norm": gnorm, "lr": lr}

@@ -21,9 +21,18 @@ Activation constraints go through the module-level context (``activate``
 and outside a mesh context it is a no-op.  Under ``activate`` it resolves
 the spec — so a constraint of the wrong rank fails as in the reference —
 and counts the constraint by call site (:data:`constraint_counts`).  It
-returns ``x`` itself: the port computes each data-parallel group's
-activations whole on one device; splitting them along ``model`` is
-tensor parallelism (ROADMAP Queue 1 item 4(e)).
+returns ``x`` itself.
+
+Tensor parallelism is the sites that split their ``tp`` dimension
+themselves (the MLP's ``d_ff``, the attention heads, the vocabulary of
+the cross-entropy): under ``activate(mesh, group=g)`` with a ``model``
+extent ``tp > 1``, :func:`tp_slots` gives each of group ``g``'s ``model``
+slots its device and its ``1/tp`` range of the dimension, or ``None``
+where the rules drop ``model`` for it (the site then runs whole on the
+group's device).  Slot ``m`` computes its range on its own device from
+that range of the weights and sends its partial result back to the
+group's device, where the partials are combined in f32.
+:data:`tp_counts` is the census of those splits.
 """
 from __future__ import annotations
 
@@ -42,7 +51,8 @@ __all__ = ["LOGICAL", "resolve_axis", "maybe_spec", "activate", "shard",
            "tree_shardings", "named", "current_mesh", "axis_size",
            "axis_size_of", "group_slots", "model_devices",
            "tree_map", "tree_items", "constraint_counts",
-           "reset_constraint_counts"]
+           "reset_constraint_counts", "tp_slots", "tp_counts",
+           "reset_tp_counts"]
 
 # logical axis -> tuple of mesh axis names (in priority order)
 LOGICAL = {
@@ -63,6 +73,22 @@ constraint_counts: dict = {}
 
 def reset_constraint_counts() -> None:
     constraint_counts.clear()
+
+
+#: The tensor-parallel census by site (``"mlp"``, ``"attention"``,
+#: ``"cross_entropy"``), summed over calls (zero it with
+#: :func:`reset_tp_counts`): ``splits``, calls split over the ``model``
+#: slots; ``whole``, calls whose dimension does not divide ``model`` and
+#: so run whole; ``sent_bytes``, the activations handed to the slots
+#: after the first (the group's own device), and ``returned_bytes``, the
+#: partial results those slots send back — what crosses between cards
+#: when each slot is a card of its own.  A call recomputed under
+#: ``torch.utils.checkpoint`` counts again.
+tp_counts: dict = {}
+
+
+def reset_tp_counts() -> None:
+    tp_counts.clear()
 
 
 def current_mesh() -> Optional[DeviceMesh]:
@@ -164,6 +190,33 @@ def shard(x, *logical):
             f"{caller.f_lineno}")
     constraint_counts[site] = constraint_counts.get(site, 0) + 1
     return x
+
+
+def tp_slots(site: str, dim: Optional[int], sent: int = 0,
+             returned: int = 0) -> Optional[list]:
+    """Split a dimension of size ``dim`` over the active group's ``model``
+    slots: ``[(device, lo, hi)]``, slot ``m``'s device
+    (:func:`model_devices`) and its range ``[lo, hi)``, in ``model``
+    order; ``None`` where the site runs whole.  Without an active mesh or
+    with a ``model`` extent of 1 it returns ``None`` and counts nothing;
+    otherwise it counts the call in :data:`tp_counts` under ``site``:
+    split, or whole where the rules drop ``model`` for ``dim`` (``dim``
+    ``None``: the site has no dimension to split), with ``sent`` and
+    ``returned`` bytes a slot for each slot after the first."""
+    mesh = _ACTIVE["mesh"]
+    if mesh is None or axis_size_of(mesh, "tp") == 1:
+        return None
+    c = tp_counts.setdefault(site, dict.fromkeys(
+        ("splits", "whole", "sent_bytes", "returned_bytes"), 0))
+    if dim is None or resolve_axis("tp", mesh, dim) is None:
+        c["whole"] += 1
+        return None
+    slots = model_devices()
+    n = dim // len(slots)
+    c["splits"] += 1
+    c["sent_bytes"] += sent * (len(slots) - 1)
+    c["returned_bytes"] += returned * (len(slots) - 1)
+    return [(d, m * n, (m + 1) * n) for m, d in enumerate(slots)]
 
 
 def axis_size(logical: str) -> int:

@@ -22,9 +22,16 @@ each distinct device holds one copy of the state in total.  A step
    (slots that share a device share one copy);
 2. runs forward and backward for every dp group (the ``pod`` x ``data``
    coordinates) on its slice of the batch, on the device of the group's
-   first slot, under ``sharding.rules.activate(mesh, group=g)`` (MoE's
-   expert-parallel branch runs each ``model`` slot's experts on that
-   slot's device);
+   first slot, under ``sharding.rules.activate(mesh, group=g)``: tensor
+   parallel along ``model`` — the MLP's ``d_ff``, the attention heads
+   and the cross-entropy's vocabulary each split over the group's
+   ``model`` slots where they divide (``rules.tp_slots``), slot ``m``
+   computing its range on its own device from that range of the group's
+   compute copy, the partials combined in f32 on the group's device,
+   the rest (norms, the SSM, the embedding) on the group's device — and
+   MoE's expert-parallel branch runs each ``model`` slot's experts on
+   that slot's device; autograd carries each slot's gradients back
+   through the copies into the group's compute copy;
 3. reduces the groups' gradients to their mean in f32 — each group's
    gradient through ``optim.compression``'s compressor first when the
    step compresses (error feedback per group);
@@ -32,10 +39,8 @@ each distinct device holds one copy of the state in total.  A step
 5. runs one AdamW update on the blocks (the reference's decay rule).
 
 :data:`sync_counts` is the census of those gathers, reductions and
-scatters.  Tensor parallelism — the dense computation split along
-``model`` — is ROADMAP Queue 1 item 4(e): here a group's ``model`` slots
-hold blocks of the state and run their experts, and the rest of the
-group's compute runs whole on its first slot.
+scatters; ``rules.tp_counts`` is the census of the tensor-parallel
+splits (a caller zeroes both before a step and reads both after it).
 """
 from __future__ import annotations
 
