@@ -123,7 +123,8 @@ slice:
    banded mixer's forward and backward launches equal to 32 layers x 2
    microbatches x 4 steps x (2 forward + 1 backward) (counters zeroed
    just before ``run``); step time, tokens/s, the checkpoint's write
-   time, peak memory, and one profiled step's device time by span;
+   time, peak memory, and device time by span of one microbatch's
+   profiled forward and backward and of one profiled AdamW update;
 17. (a) one f32-compute step at full width and depth (batch 1 x 1024),
    ``kernel_impl="cuda"`` against ``"ref"``: loss to a relative 1e-5,
    grad norm to 1e-4, every layer's ``conv_band`` gradient to 1e-3 x
@@ -184,7 +185,7 @@ mesh):
 then the LM half of the distributed path on slots of the card:
 
 22. (a) Hymba-1.5B at full width and depth (f32 parameters, bf16
-   compute, remat full), batch 4 x 1024 ``SyntheticLM`` tokens, 3 steps
+   compute, remat full), batch 4 x 1024 ``SyntheticLM`` tokens, 2 steps
    through ``Trainer(mesh=make_mesh((4, 2), ("data", "model")))``: the
    data-parallel step with FSDP placement (a gather, four dp groups'
    forward and backward, an f32 mean, a scatter, AdamW on the blocks),
@@ -197,9 +198,11 @@ then the LM half of the distributed path on slots of the card:
    run's final save is counted, not written); ``rules.tp_counts`` of the
    run equal to its prediction from the layers, CE chunks, groups, steps
    and remat recomputes; step time against phase
-   16's one-device step, peak memory, the sync census and one profiled
-   step split into gather, reduction, scatter, mixer, SSM scan, AdamW and
-   the rest; (b) at depth 4 in f32 compute: the 4x2 step's loss within
+   16's one-device step, peak memory, the sync census, one profiled
+   dp group's pass (forward and backward of group 0) split into mixer,
+   SSM scan and the rest, and one profiled step whose passes are copies
+   of group 0's gradients split into gather, reduction, scatter and
+   AdamW; (b) at depth 4 in f32 compute: the 4x2 step's loss within
    1e-4 of one device's (4 microbatches, same seed) and its gradient norm
    within 1e-4 relative, its checkpoint (timed) restored onto 2x2x2
    ``("pod", "data", "model")`` by the Trainer and the second step held
@@ -215,12 +218,26 @@ then the LM half of the distributed path on slots of the card:
    attention's KV heads and the vocabulary each split over the four model
    slots, within 1e-4 relative of one device in loss and gradient norm,
    ``rules.tp_counts`` exact with no whole call, and a spy on
-   ``rules.model_devices`` read once a split.
+   ``rules.model_devices`` read once a split;
+
+and last the port's examples and its dry run:
+
+23. each ``examples/torch_*.py`` called in-process on the card at its
+   own size (the halo exchange on 2x2 slots of the card, ``torch_serve_lm
+   --arch hymba_1_5b``, ``torch_train_lm --steps 30``), its own asserts
+   kept; the step and sweep launches of the quickstart, the halo
+   exchange and the rollout equal to what their plans imply, the banded
+   mixer's equal to layers x (1 + gen_len), each kernel configuration
+   they launched against its plain version; then one full-size dry-run
+   cell (TinyLlama-1.1B ``decode_32k`` on the 16x16 mesh of ``meta``
+   slots) counted by ``launch/dryrun.run_cell``, its ``head_dim``
+   constraint counted once a layer, group and projection, and its
+   ``launch/roofline`` table printed.
 
 Any kernel-vs-plain error over its tolerance (phases 3, 5, 6, 8, 10 and
 20), any main-path cell off its oracle, or any serve, server, chaos,
-rollout, calibration, gradient, training, family or distributed check
-that fails (phases 9-22) fails the run.
+rollout, calibration, gradient, training, family, distributed, example
+or dry-run check that fails (phases 9-23) fails the run.
 
 The last three lines are a JSON object ``{"kernels": [...]}`` (all four
 kernels; ``launches`` is the count of each kernel's own path — phase 4
@@ -232,7 +249,7 @@ row phase 16's backward launches; every row's ``launches_by_path`` also
 holds ``lm_families``, phase 18's launches of that kernel, and the step
 and sweep rows ``distributed`` and ``distributed_recovery``, phases 20
 and 21, and the two banded-mixer rows ``distributed_train``, phase 22's
-launches), the card's ``name,
+launches; every row holds ``examples``, phase 23's), the card's ``name,
 power.limit`` and ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository's sources beside this file, it exits non-zero and prints no
 result.
@@ -342,13 +359,17 @@ DIST_CELLS = (
 DIST_RECOVERY = dict(cell="star2d_r2", grid=8192, segment=4,
                      serve_grid=4096, steps=16, requests=16, max_batch=4)
 # phase 22: the LM half of the distributed path on slots of the card
-DIST_TRAIN = dict(mesh=(4, 2), batch=4, seq=1024, steps=3, lr=3e-4, seed=0)
+DIST_TRAIN = dict(mesh=(4, 2), batch=4, seq=1024, steps=2, lr=3e-4, seed=0)
 DIST_TRAIN_CHECK = dict(layers=4, period=2, batch=4, seq=1024, seed=0,
                         restore_mesh=(2, 2, 2))
 DIST_TRAIN_TOL = 1e-4               # the reference's loss bar
 DIST_COMPRESS_REL_TOL = 0.02        # the reference's compressed-sync bar
 EP_TRAIN = dict(archs=("granite_moe_3b_a800m", "qwen3_moe_30b_a3b"),
                 layers=2, mesh=(1, 4), batch=2, seq=512, seed=0)
+# phase 23: the examples on the card, and one full-size dry-run cell
+EXAMPLE_SERVE = ["--arch", "hymba_1_5b"]
+EXAMPLE_TRAIN = ["--steps", "30"]
+DRY_CELL = dict(arch="tinyllama_1_1b", cell="decode_32k", multi_pod=False)
 TP_TRAIN = dict(arch="tinyllama_1_1b", layers=2, mesh=(1, 4), batch=2,
                 seq=512, seed=0)
 # phase 15: the differentiable stencil at full width; dC sums ~6.7e7
@@ -2271,13 +2292,42 @@ def _train_split(prof, span_names=_TRAIN_SPANS) -> dict:
     return split
 
 
+def _profile_step_tail(step, state, batch, grads, span_names) -> dict:
+    """:func:`_train_split` of one ``step`` whose forward and backward
+    (``train_step._accumulate``) are replaced by a copy of ``grads`` for
+    each group: the gradient sync and AdamW under the profiler, seconds
+    where the whole step profiled takes minutes.  The copies are outside
+    every span.  ``state`` is updated: profile it last."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import train_step as ts
+
+    real = ts._accumulate
+
+    def copied(model, loss_fn, batch, microbatches):
+        zero = torch.zeros((), dtype=torch.float32, device=model.embed.device)
+        return {n: g.clone() for n, g in grads.items()}, zero, zero
+    ts._accumulate = copied
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        ts._accumulate = real
+    split = _train_split(prof, span_names)
+    del prof
+    return split
+
+
 def train_hymba(device, failures: list) -> dict:
     """Phase 16: ``Trainer.run`` on Hymba-1.5B at full width and depth
     (f32 parameters, bf16 compute, remat "full"), batch 4 x 1024 tokens of
     ``SyntheticLM`` (seed 0) in two microbatches, AdamW at
     ``cosine_schedule(3e-4)``, 4 steps and the final save.  The banded
     mixer's counters are zeroed just before ``run`` and read just after;
-    then one more step under the profiler."""
+    then one microbatch's forward and backward under the profiler, and
+    one AdamW update on its gradients (:func:`_profile_step_tail`)."""
     import shutil
 
     import torch
@@ -2286,6 +2336,7 @@ def train_hymba(device, failures: list) -> dict:
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels import banded_mixer as bm
     from repro_torch.optim.adamw import adamw, cosine_schedule
+    from repro_torch.train import train_step as ts
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     t = TRAIN
@@ -2354,25 +2405,43 @@ def train_hymba(device, failures: list) -> dict:
         failures.append(f"train: finite={finite} falls={falls} launches="
                         f"{got}/{want} step={int(state.step)}")
 
+    # one microbatch's forward and backward under the profiler (the whole
+    # step profiled took ~88 s); AdamW is profiled after it, apart
+    rows = t["batch"] // t["microbatches"]
+    part = {k: torch.as_tensor(v)[:rows].to(device)
+            for k, v in tr.pipeline.batch_at(t["steps"]).items()}
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        tr._step(state, tr.pipeline.batch_at(t["steps"]))
+        grads, _, _ = ts._accumulate(state.params, ts.make_loss_fn(cfg),
+                                     part, 1)
         torch.cuda.synchronize()
     split = _train_split(prof)
     prof_s = time.perf_counter() - t0
     if split["total"] == 0.0:
-        log("  profiled step: the profiler saw no device time: breakdown "
+        log("  profiled pass: the profiler saw no device time: breakdown "
             "not measured")
     else:
         parts = ", ".join(f"{k} {v:.1f}" for k, v in split.items()
-                          if k not in ("total", "kernels"))
-        log(f"  profiled step: {split['kernels']} device kernels and copies,"
-            f" device {split['total']:.1f} ms = {parts} ms; "
-            f"device idle {max(0.0, 1 - split['total'] / (step_s * 1e3)):.1%}"
-            f" of the unprofiled step (profiling and its read took "
-            f"{prof_s:.1f} s)")
-    del state, tr, prof
+                          if k not in ("total", "kernels", "adamw"))
+        share = step_s * 1e3 / t["microbatches"]
+        log(f"  profiled pass of one microbatch ({rows} x {t['seq']} "
+            f"tokens, forward and backward; no AdamW): {split['kernels']} "
+            f"device kernels and copies, device {split['total']:.1f} ms = "
+            f"{parts} ms; device idle "
+            f"{max(0.0, 1 - split['total'] / share):.1%} of "
+            f"1/{t['microbatches']} of the unprofiled step ({share:.1f} ms;"
+            f" profiling and its read took {prof_s:.1f} s)")
+    del prof
+    t0 = time.perf_counter()
+    tail = _profile_step_tail(tr._step, state, tr.pipeline.batch_at(
+        t["steps"]), grads, _TRAIN_SPANS)
+    log(f"  profiled AdamW (one step, its pass replaced by a copy of the "
+        f"pass's gradients): AdamW {tail['adamw']:.1f} ms of device "
+        f"{tail['total']:.1f} ms, {tail['kernels']} device kernels and "
+        f"copies (profiling and its read took "
+        f"{time.perf_counter() - t0:.1f} s)")
+    del state, tr, grads
     torch.cuda.empty_cache()
     return {"launches": launches, "backward_launches": backward,
             "step_s": step_s}
@@ -2990,6 +3059,30 @@ def _warm_ms(fn, x, device, reps: int = 3) -> float:
     return statistics.median(walls)
 
 
+def check_recorded(device, failures: list, seen: dict, path: str) -> None:
+    """Hold every stencil kernel configuration a :class:`_Recording`
+    recorded against its plain version, on the input it was handed."""
+    from repro_torch.kernels import stencil_mxu as sm
+    for (name, sdesc, block, steps, xshape, n_aux), (xin, kplan, aux) in \
+            sorted(seen.items(), key=lambda kv: repr(kv[0])):
+        kernel = sm.sweep_cuda_call if name == "stencil_sweep" \
+            else sm.stencil_cuda_call
+        plain = sm.sweep_plain if name == "stencil_sweep" \
+            else sm.stencil_step_plain
+        got, want = kernel(xin, kplan, aux), plain(xin, kplan, aux)
+        _sync(device)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = KERNEL_TOL[str(got.dtype).removeprefix("torch.")]
+        ok = err <= tol and got.shape == want.shape
+        log(f"  {name} on the {path} path: {sdesc}, block {block}, "
+            f"T={steps}, {n_aux} aux, input {xshape}: max|kernel-plain| "
+            f"{err:.3e} (tol {tol:g}){'' if ok else '  FAIL'}")
+        if not ok:
+            failures.append(f"{path} kernel vs plain: {name} {xshape}: "
+                            f"{err:.3e}")
+        del got, want
+
+
 def distributed_cells(device, failures: list, cells=DIST_CELLS) -> dict:
     """Phase 20: every cell through ``api.plan`` -> ``api.compile`` on a
     mesh of slots of ``device``: the oracle at 1e-4, the same plan
@@ -3092,25 +3185,7 @@ def distributed_cells(device, failures: list, cells=DIST_CELLS) -> dict:
             del prof
         del x, y
     # every kernel configuration the path launched, at its shard shape
-    for (name, sdesc, block, steps, xshape, n_aux), (xin, kplan, aux) in \
-            sorted(seen.items(), key=lambda kv: repr(kv[0])):
-        from repro_torch.kernels import stencil_mxu as sm
-        kernel = sm.sweep_cuda_call if name == "stencil_sweep" \
-            else sm.stencil_cuda_call
-        plain = sm.sweep_plain if name == "stencil_sweep" \
-            else sm.stencil_step_plain
-        got, want_ = kernel(xin, kplan, aux), plain(xin, kplan, aux)
-        _sync(device)
-        err = (got.float() - want_.float()).abs().max().item()
-        tol = KERNEL_TOL[str(got.dtype).removeprefix("torch.")]
-        ok = err <= tol and got.shape == want_.shape
-        log(f"  {name} on the distributed path: {sdesc}, block {block}, "
-            f"T={steps}, {n_aux} aux, input {xshape}: max|kernel-plain| "
-            f"{err:.3e} (tol {tol:g}){'' if ok else '  FAIL'}")
-        if not ok:
-            failures.append(f"distributed kernel vs plain: {name} {xshape}: "
-                            f"{err:.3e}")
-        del got, want_
+    check_recorded(device, failures, seen, "distributed")
     for name, v in total.items():
         if v <= 0:
             failures.append(f"the distributed path never launched {name}")
@@ -3242,12 +3317,13 @@ _DIST_SPANS = ("sync_gather", "sync_reduce", "sync_scatter", "ssm_scan",
 
 def dist_train_hymba(device, failures: list, one_device_step_s: float) -> dict:
     """Phase 22a: ``Trainer.run`` of Hymba-1.5B at full width and depth on
-    a 4x2 ``("data", "model")`` mesh of slots of the card, 3 steps; the
+    a 4x2 ``("data", "model")`` mesh of slots of the card, 2 steps; the
     banded mixer's counters and the sync census zeroed just before
     ``run`` and read just after, and every mixer configuration it
-    launched held against its plain version; then one more step under
-    the profiler.  The run's final save is counted, not written: phase
-    22b writes a mesh checkpoint and restores it."""
+    launched held against its plain version; then group 0's pass under
+    the profiler, and the sync and AdamW (:func:`_profile_step_tail`).
+    The run's final save is counted, not written: phase 22b writes a
+    mesh checkpoint and restores it."""
     import shutil
 
     import torch
@@ -3351,32 +3427,53 @@ def dist_train_hymba(device, failures: list, one_device_step_s: float) -> dict:
                 banded_config_cases(device, configs, "distributed train",
                                     8200))
 
+    # one dp group's forward and backward under the profiler (group 0, on
+    # its compute copy as the last step gathered it; the whole step
+    # profiled took ~115 s): the mixer, the scan and the MLP split; the
+    # sync and AdamW are profiled after it, apart
+    dev0 = ts.dp_groups(mesh)[0]
+    width = t["batch"] // groups
+    part = {k: torch.as_tensor(v)[:width].to(dev0)
+            for k, v in tr.pipeline.batch_at(t["steps"]).items()}
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        tr._step(state, tr.pipeline.batch_at(t["steps"]))
+        with rules.activate(mesh, group=0):
+            grads, _, _ = ts._accumulate(state.compute[ts._device_key(dev0)],
+                                         ts.make_loss_fn(cfg), part, 1)
         torch.cuda.synchronize()
     split = _train_split(prof, _DIST_SPANS)
     prof_s = time.perf_counter() - t0
     if split["total"] == 0.0:
-        log("  profiled step: the profiler saw no device time: breakdown "
+        log("  profiled pass: the profiler saw no device time: breakdown "
             "not measured")
     else:
-        parts = {"gather": split["sync_gather"],
-                 "reduction": split["sync_reduce"],
-                 "scatter": split["sync_scatter"],
-                 "mixer forward": split["banded_mixer_forward"],
+        parts = {"mixer forward": split["banded_mixer_forward"],
                  "mixer dx": split["banded_mixer_backward"],
-                 "SSM scan": split["ssm_scan"] + split["ssm_scan_backward"],
-                 "AdamW": split["adamw"]}
+                 "SSM scan": split["ssm_scan"] + split["ssm_scan_backward"]}
         rest = split["total"] - sum(parts.values())
         text = ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
-        log(f"  profiled step: {split['kernels']} device kernels and copies,"
-            f" device {split['total']:.1f} ms = {text}, rest {rest:.1f} ms "
-            f"(matmuls {split['matmuls']:.1f}); device idle "
-            f"{max(0.0, 1 - split['total'] / (step_s * 1e3)):.1%} of the "
-            f"unprofiled step (profiling and its read took {prof_s:.1f} s)")
-    del state, tr, prof
+        share = step_s * 1e3 / groups
+        log(f"  profiled pass of dp group 0 of {groups} ({width} x "
+            f"{t['seq']} tokens, forward and backward; no sync, no AdamW): "
+            f"{split['kernels']} device kernels and copies, device "
+            f"{split['total']:.1f} ms = {text}, rest {rest:.1f} ms (matmuls "
+            f"{split['matmuls']:.1f}); device idle "
+            f"{max(0.0, 1 - split['total'] / share):.1%} of 1/{groups} of "
+            f"the unprofiled step ({share:.1f} ms; profiling and its read "
+            f"took {prof_s:.1f} s)")
+    del prof
+    t0 = time.perf_counter()
+    tail = _profile_step_tail(tr._step, state, tr.pipeline.batch_at(
+        t["steps"]), grads, _DIST_SPANS)
+    log(f"  profiled sync and AdamW (one step, each of the {groups} groups' "
+        f"passes replaced by a copy of group 0's gradients): gather "
+        f"{tail['sync_gather']:.1f}, reduction {tail['sync_reduce']:.1f}, "
+        f"scatter {tail['sync_scatter']:.1f}, AdamW {tail['adamw']:.1f} ms "
+        f"of device {tail['total']:.1f} ms, {tail['kernels']} device "
+        f"kernels and copies (profiling and its read took "
+        f"{time.perf_counter() - t0:.1f} s)")
+    del state, tr, grads
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "backward_launches": backward}
@@ -3704,7 +3801,7 @@ def distributed_train(device, failures: list,
     """Phase 22; returns the banded mixer's launches of 22a."""
     log("phase 22a: Hymba-1.5B trains at full width and depth on a 4x2 "
         "(data, model) slot mesh, tensor parallel where d_ff divides, "
-        "batch 4 x 1024, 3 steps through Trainer(mesh=)")
+        "batch 4 x 1024, 2 steps through Trainer(mesh=)")
     run = dist_train_hymba(device, failures, one_device_step_s)
     log("phase 22b: the 4x2 step (the MLP split over model) against one "
         "device, a restore onto 2x2x2, the bf16 sync; depth 4, f32")
@@ -3717,6 +3814,188 @@ def distributed_train(device, failures: list,
         "2, f32")
     tp_train(device, failures)
     return run
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the examples on the card, and one full-size dry-run cell
+# ---------------------------------------------------------------------------
+
+def _example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_example(name: str, argv: list, failures: list):
+    """``examples/<name>.py``'s ``main(argv)`` with its printout kept in
+    ``_chip/<name>.log`` (its last line logged); an assert of the script
+    or any other exception is a failure.  Returns its result (``None``
+    when it raised) and its host seconds."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    result = None
+    try:
+        with contextlib.redirect_stdout(out):
+            result = _example(name).main(argv)
+    except Exception as err:  # noqa: BLE001 - reported, the run fails
+        failures.append(f"example {name}: {type(err).__name__}: {err}")
+    secs = time.perf_counter() - t0
+    (ROOT / "_chip").mkdir(exist_ok=True)
+    (ROOT / "_chip" / f"{name}.log").write_text(out.getvalue())
+    lines = out.getvalue().strip().splitlines() or [""]
+    log(f"  {name} {' '.join(argv)}: {secs:.1f} s (host clock, first calls "
+        f"included){'' if result is not None else '  FAIL'}; last line: "
+        f"{lines[-1]}")
+    return result, secs
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def examples_on_card(device, failures: list) -> dict:
+    """Phase 23: every port example on the card, launches gated against
+    the plans (the mixer's against layers x (1 + gen_len)), each kernel
+    configuration they launched held against its plain version.  Returns
+    the phase's launches by kernel."""
+    import shutil
+    from repro_torch.kernels import banded_mixer as bm
+
+    dev = ["--device", str(device)]
+    rec = _Recording()
+    mixer_configs: set = set()
+    restore = _recording_banded_configs(mixer_configs)
+    _zero_counts()                       # zeroed just before the examples
+    bm.banded_mixer_cuda_call.launches = 0
+    checks = []
+    try:
+        before = _read_counts()
+        q, _ = _run_example("torch_quickstart", dev, failures)
+        if q is not None:
+            checks.append(("quickstart", _delta(_read_counts(), before),
+                           plan_launches(q["plans"][0])))
+            log(f"  quickstart: matrixized vs oracle {q['oracle_err']:.2e}, "
+                f"mass {q['mass']:.3f} from {q['mass0']:.3f}")
+        before = _read_counts()
+        d, _ = _run_example("torch_pde_halo_exchange",
+                            dev + ["--mesh", "2x2"], failures)
+        if d is not None:
+            checks.append(("pde_halo_exchange",
+                           _delta(_read_counts(), before),
+                           dist_plan_launches(d["plans"][0], d["mesh"].size)))
+            log(f"  pde_halo_exchange: 2x2 slots of the card, max|mesh - "
+                f"one device| {d['err']:.2e}, census {d['census']} "
+                f"({d['chunks']} chunks x 2 axes x 2 directions)")
+        before = _read_counts()
+        r, _ = _run_example("torch_assimilation_rollout", dev, failures)
+        if r is not None:
+            r["server"].stop()
+            # the clean run (every segment), the killed run (segments 0-2,
+            # the kill fires after segment 2's dispatch) and the resumed
+            # one (2, 3); then the server's settled programs
+            want = expected_launches(r["server"].caches, {})
+            for p, n in zip(r["plans"], (2, 2, 3, 2)):
+                for k, v in plan_launches(p).items():
+                    want[k] += n * v
+            checks.append(("assimilation_rollout",
+                           _delta(_read_counts(), before), want))
+            log(f"  assimilation_rollout: emits at {r['emit_steps']}, "
+                f"resume bit-exact {r['bit_exact']}, {r['batches']} server "
+                f"buckets")
+        bm.banded_mixer_cuda_call.launches = 0
+        g, _ = _run_example("torch_serve_lm", dev + EXAMPLE_SERVE, failures)
+        mixer = bm.banded_mixer_cuda_call.launches
+        if g is not None:
+            cfg = g["cfg"]
+            gen_len = g["ids"].shape[-1]
+            checks.append(("serve_lm", {"banded_mixer": mixer},
+                           {"banded_mixer": cfg.num_layers * (1 + gen_len)}))
+        ckpt = ROOT / "_chip" / "example_train_ckpt"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        tr, secs = _run_example("torch_train_lm",
+                                dev + EXAMPLE_TRAIN + ["--ckpt-dir",
+                                                       str(ckpt)], failures)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        if tr is not None:
+            finite = all(m["loss"] == m["loss"] and abs(m["loss"]) < 1e9
+                         for m in tr["log"])
+            ok = finite and tr["step"] == int(EXAMPLE_TRAIN[1])
+            steps = ", ".join(f"{m['step']}: {m['loss']:.4f} "
+                              f"({m['sec_per_step']:.3f} s)"
+                              for m in tr["log"])
+            log(f"  train_lm: {tr['step']} steps, loss {tr['first']:.3f} -> "
+                f"{tr['last']:.3f}, steps {steps} (host clock){'' if ok else '  FAIL'}")
+            if not ok:
+                failures.append(f"train_lm example: {tr['log']}")
+    finally:
+        rec.restore()
+        restore()
+    counts = dict(_read_counts(), banded_mixer=mixer)
+    for name, got, want in checks:
+        ok = got == want
+        log(f"  {name}: launches {got} (plans imply {want})"
+            f"{'' if ok else '  FAIL'}")
+        if not ok:
+            failures.append(f"example {name} launches {got} vs {want}")
+    # every example plan is an in-kernel sweep schedule: the step kernel
+    # launches only where a plan implies it
+    for name in ("stencil_sweep", "banded_mixer"):
+        if counts[name] <= 0:
+            failures.append(f"the examples never launched the {name} kernel")
+    check_recorded(device, failures, rec.seen, "examples")
+    check_cases(device, failures, banded_config_cases(
+        device, mixer_configs, "examples", 8400))
+    log(f"  launches over phase 23's examples: {counts}")
+    return {"launches": counts}
+
+
+def dry_run_cell(failures: list) -> None:
+    """Phase 23's dry run: one full-size cell counted on ``meta`` slots,
+    its record kept in ``_chip/dryrun`` and its roofline row printed."""
+    import shutil
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import transformer as tf
+    import inspect
+
+    c = DRY_CELL
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(c["arch"], c["cell"], c["multi_pod"])
+    secs = time.perf_counter() - t0
+    out = ROOT / "_chip" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    tag = f"{c['arch']}__{c['cell']}__{'pod2' if c['multi_pod'] else 'pod1'}"
+    (out / f"{tag}.json").write_text(json.dumps(rec, indent=1))
+    cfg = get_config(c["arch"])
+    mesh = make_production_mesh(c["multi_pod"])
+    groups = mesh.size // mesh.shape[-1]
+    lines, first = inspect.getsourcelines(tf._project_qkv)
+    sites = [f"transformer.py:{first + i}" for i, line in enumerate(lines)
+             if 'None, None, "tp")' in line]
+    got = {k: rec["census"]["constraints"].get(k, 0) for k in sites}
+    want = dict.fromkeys(sites, cfg.num_layers * groups)
+    cost, r = rec["op_cost"], rec["roofline"]
+    ok = cost["dot_flops"] > 0 and len(sites) == 3 and got == want
+    log(f"  {tag}: counted in {rec['count_s']} s ({secs:.1f} s with the "
+        f"build) on {rec['devices']} meta slots: {cost['dot_flops']:.4e} "
+        f"dot flops, {cost['traffic_bytes']:.4e} bytes, wire "
+        f"{dryrun.wire_bytes(rec['census']):.4e} bytes (the gather counted "
+        f"for {rec['census']['gather_groups']} groups); memory per slot "
+        f"{rec['memory']}; roofline {r}; head_dim constraints {got} "
+        f"(predicted {cfg.num_layers} layers x {groups} groups a site)"
+        f"{'' if ok else '  FAIL'}")
+    if not ok:
+        failures.append(f"dry run {tag}: dot flops {cost['dot_flops']}, "
+                        f"head_dim constraints {got} vs {want}")
+    for line in roofline.markdown_table(str(out)).splitlines():
+        log(f"    {line}")
 
 
 def main() -> int:
@@ -3889,6 +4168,15 @@ def main() -> int:
         elif row["name"] == "banded_mixer_backward":
             row["launches_by_path"]["distributed_train"] = \
                 dist_train["backward_launches"]
+    t_examples = time.perf_counter()
+    log("phase 23: the examples on the card; one full-size dry-run cell on "
+        "meta slots")
+    examples = examples_on_card(device, failures)
+    dry_run_cell(failures)
+    log(f"  phase 23 took {time.perf_counter() - t_examples:.1f} s")
+    for row in rows:
+        row["launches_by_path"]["examples"] = \
+            examples["launches"].get(row["name"], 0)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     if failures:

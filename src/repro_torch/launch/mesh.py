@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 __all__ = ["HardwareSpec", "H100_SXM", "HARDWARE", "get_hardware",
-           "DeviceMesh", "make_mesh", "shrunk_shape"]
+           "DeviceMesh", "make_mesh", "make_production_mesh",
+           "shrunk_shape"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +119,17 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     arr = np.empty(n, dtype=object)
     arr[:] = devs
     return DeviceMesh(arr.reshape(shape), tuple(axes))
+
+
+def make_production_mesh(multi_pod: bool = False,
+                         devices="meta") -> DeviceMesh:
+    """The dry run's production mesh: 16x16 ``("data", "model")``, or
+    2x16x16 ``("pod", "data", "model")`` with ``multi_pod``; every slot
+    ``devices`` (by default ``meta``, which stands in for the reference's
+    512 placeholder devices and holds no memory)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices=devices)
 
 
 def shrunk_shape(shape: Sequence[int]) -> tuple[int, ...] | None:

@@ -12,7 +12,8 @@ reference's einsums over its ``(E, C, D)`` buffer do.
 
 One departure in size, not in value: the buffer holds
 ``min(C, max tokens of any expert)`` rows (one host read per dispatch
-group).  A row past an expert's count is zero in the reference and never
+group; ``C`` rows on the ``meta`` device, which has no values to read).
+A row past an expert's count is zero in the reference and never
 gathered, so the output is the same; dropless serving would otherwise
 build ``(E, T, D)`` and do ``E/k`` times the useful expert work.
 
@@ -103,7 +104,9 @@ def route(xt: torch.Tensor, router: torch.Tensor, mcfg,
     cap = _capacity(t, mcfg, dropless)
     flat_expert = experts.reshape(-1)
     order = torch.argsort(flat_expert, stable=True)
-    counts = torch.bincount(flat_expert, minlength=e)
+    # scatter_add_ gives bincount's integers and, unlike it, runs on meta
+    counts = torch.zeros(e, dtype=torch.int64, device=xt.device).scatter_add_(
+        0, flat_expert, torch.ones_like(flat_expert))
     starts = torch.cumsum(counts, 0) - counts
     pos_sorted = torch.arange(t * k, device=xt.device) - \
         starts[flat_expert[order]]
@@ -134,11 +137,14 @@ def _moe_group(xt: torch.Tensor, p, mcfg, act: str, dropless: bool,
             * mcfg.aux_loss_weight
         for observe in DISPATCH_OBSERVERS:
             observe(r.counts, torch.sum(~r.keep))
+    # one host read sizes every buffer; on meta, where nothing can be read,
+    # the static capacity (the reference's own (E, C, D) buffer)
+    on_meta = xt.device.type == "meta"
     if slots is None:
-        rows = min(r.cap, int(r.counts.max()))      # one host read
+        rows = r.cap if on_meta else min(r.cap, int(r.counts.max()))
         return _experts(xt, r, p, 0, r.keep, rows, act), aux.to(torch.float32)
     with record_function("moe_dispatch"):
-        counts = r.counts.tolist()      # one host read sizes every buffer
+        counts = [r.cap] * e if on_meta else r.counts.tolist()
         flat_expert = r.experts.reshape(-1)
     n = e // len(slots)
     y = torch.zeros((t, d), dtype=torch.float32, device=xt.device)

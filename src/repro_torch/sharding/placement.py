@@ -25,8 +25,8 @@ import torch
 
 from repro_torch.launch.mesh import DeviceMesh
 
-__all__ = ["P", "Placed", "NamedPlacement", "place", "zeros", "unshard",
-           "reshard", "spec_axes", "block_index", "unique_coords",
+__all__ = ["P", "Placed", "NamedPlacement", "place", "place_views", "zeros",
+           "unshard", "reshard", "spec_axes", "block_index", "unique_coords",
            "as_tensor"]
 
 Tensor = torch.Tensor
@@ -188,6 +188,18 @@ def place(x: Tensor, mesh: DeviceMesh, spec: Sequence) -> Placed:
         b = torch.empty(part.shape, dtype=x.dtype, device=dev)
         b.copy_(part)
         return b
+    return _build(mesh, spec, x.shape, make)
+
+
+def place_views(x: Tensor, mesh: DeviceMesh, spec: Sequence) -> Placed:
+    """``x``'s blocks on ``mesh`` as views of ``x``, which must lie on
+    every slot's device already: a placement that moves nothing (the dry
+    run's ``meta`` tensors, as arguments arrive placed)."""
+    def make(idx, dev):
+        if dev != x.device:
+            raise ValueError(f"a view placement needs every slot on "
+                             f"{x.device}, not {dev}")
+        return x[idx]
     return _build(mesh, spec, x.shape, make)
 
 

@@ -15,6 +15,7 @@ from repro_torch.core import stencil_spec as ss
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 torch.set_num_threads(2)
 
@@ -47,12 +48,29 @@ _REPRO_IMPORT = re.compile(
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py"] + EXAMPLES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax_and_no_reference(path):
     text = path.read_text()
     assert not _JAX_IMPORT.search(text), path
     assert not _REPRO_IMPORT.search(text), path
+
+
+def test_importing_every_port_example_loads_no_jax():
+    assert len(EXAMPLES) == 5
+    code = (
+        "import importlib.util, sys\n"
+        f"for i, p in enumerate({[str(p) for p in EXAMPLES]!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(','.join(bad))\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"an example pulled in: {out.stdout}"
 
 
 def test_compile_without_device_needs_a_card():
