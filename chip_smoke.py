@@ -39,7 +39,9 @@ Phases:
    in turns;
 7. time each cell's warm run on the host clock and break one profiled
    run's device time into the two kernels and everything else, with the
-   periodic-pad gathers counted: only the step kernel's chunks may pad;
+   pads counted twice, by the port's ``halo.pad`` spans (count, bytes,
+   device ms) and by the device's gather launches: only the step kernel's
+   chunks may pad;
 8. hold the LM kernels against their plain versions: the banded mixer
    (shared and depthwise band, W in {1, 2, 4}, T = 1539, D = 3237, batch 1
    and 4, f32 and bf16) and flash attention (causal and full, f32 and
@@ -771,7 +773,8 @@ def profiled_call_ms(fn, reps: int = 20):
             fn()
         torch.cuda.synchronize()
     total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA) / 1e3
+                if ev.device_type == DeviceType.CUDA
+                and not ev.is_user_annotation) / 1e3
     return total / reps if total else None
 
 
@@ -933,18 +936,33 @@ def expected_pad_gathers(run) -> int:
                if not (t > 1 and p.fuse_strategy == "inkernel"))
 
 
+def expected_tile_pads(run) -> int:
+    """Zero pads to whole tiles a cell's run may make: one for every chunk
+    the step kernel runs where the tile does not divide the grid (none at
+    the cells' full sizes)."""
+    p = run.plan
+    if not any(g % min(b, g) for g, b in zip(p.grid, p.block)):
+        return 0
+    return sum(1 for t in p.fuse_schedule
+               if not (t > 1 and p.fuse_strategy == "inkernel"))
+
+
 def cell_breakdown(device, main: dict, failures: list) -> None:
     """For each cell, a warm run of the compiled executable: its time on
     the host clock (median of 3, each ending in a synchronize), and from
     one profiled run the device time of the two kernels and of every other
-    device op (pads, copies), with the periodic-pad gathers counted (more
-    than :func:`expected_pad_gathers` fails the run).  The device's idle
-    share is that device time against the unprofiled warm run (the
-    profiler slows the host, so the profiled run's own wall time is
-    longer)."""
+    device op, and the pads from the port's own ``halo.pad`` spans
+    (``runtime/trace.py``): their count (more than
+    :func:`expected_pad_gathers` and :func:`expected_tile_pads` fails the
+    run), bytes and device time by the spans' CUDA events.  The device
+    ops whose names hold "gather" are counted too, whoever launched them:
+    more than :func:`expected_pad_gathers` fails the run, so a pad made
+    outside ``halo.pad_trailing`` cannot hide from the check."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import trace
 
     for i, cell in enumerate(CELLS):
         run = main["runs"][cell["label"]]
@@ -964,11 +982,13 @@ def cell_breakdown(device, main: dict, failures: list) -> None:
             run(x)
             torch.cuda.synchronize()
             prof_wall = (time.perf_counter() - t0) * 1e3
+        pad = trace.session().get(
+            "halo.pad", {"count": 0, "bytes": 0, "device_s": None})
         groups = {"stencil_step": 0.0, "stencil_sweep": 0.0, "other": 0.0}
         others: dict[str, float] = {}
-        pads, pad_ms = 0, 0.0
+        gathers, gather_ms = 0, 0.0
         for ev in prof.key_averages():
-            if ev.device_type != DeviceType.CUDA:
+            if ev.device_type != DeviceType.CUDA or ev.is_user_annotation:
                 continue
             ms = ev.self_device_time_total / 1e3
             key = next((k for k in ("stencil_step", "stencil_sweep")
@@ -977,29 +997,36 @@ def cell_breakdown(device, main: dict, failures: list) -> None:
             if key == "other":
                 others[ev.key[:60]] = others.get(ev.key[:60], 0.0) + ms
                 if "gather" in ev.key.lower():
-                    pads += ev.count
-                    pad_ms += ms
-        busy = sum(groups.values())
-        if busy == 0.0:
+                    gathers += ev.count
+                    gather_ms += ms
+        allowed = expected_pad_gathers(run) + expected_tile_pads(run)
+        ok = (pad["count"] <= allowed
+              and gathers <= expected_pad_gathers(run))
+        pad_ms = ("not measured" if pad["device_s"] is None
+                  else f"{pad['device_s'] * 1e3:.3f} ms")
+        pads = (f"pads (halo.pad spans) {pad['count']} copies, "
+                f"{pad['bytes'] / 1e9:.3f} GB, {pad_ms} (the step kernel's "
+                f"chunks allow {allowed}); gather launches on the device "
+                f"{gathers}, {gather_ms:.3f} ms (allowed "
+                f"{expected_pad_gathers(run)})")
+        if sum(groups.values()) == 0.0:
             log(f"  {cell['label']}: warm run {wall:.3f} ms (host clock); "
-                f"the profiler saw no device time: breakdown not measured")
-            continue
-        top = "; ".join(f"{k} {v:.3f}" for k, v in sorted(
-            others.items(), key=lambda kv: -kv[1])[:4])
-        allowed = expected_pad_gathers(run)
-        ok = pads <= allowed
-        log(f"  {cell['label']}: warm run {wall:.3f} ms (host clock, "
-            f"median of 3); profiled run {prof_wall:.3f} ms: step kernel "
-            f"{groups['stencil_step']:.3f} ms, sweep kernel "
-            f"{groups['stencil_sweep']:.3f} ms, other device ops "
-            f"{groups['other']:.3f} ms [{top}], of which periodic-pad "
-            f"gathers (index_select) {pads} launches {pad_ms:.3f} ms "
-            f"(the step kernel's chunks allow {allowed}); device idle "
-            f"{max(0.0, 1 - busy / wall):.1%} of the warm run"
-            f"{'' if ok else '  FAIL'}")
+                f"the profiler saw no device time: breakdown not measured; "
+                f"{pads}{'' if ok else '  FAIL'}")
+        else:
+            top = "; ".join(f"{k} {v:.3f}" for k, v in sorted(
+                others.items(), key=lambda kv: -kv[1])[:4])
+            log(f"  {cell['label']}: warm run {wall:.3f} ms (host clock, "
+                f"median of 3); profiled run {prof_wall:.3f} ms: step "
+                f"kernel {groups['stencil_step']:.3f} ms, sweep kernel "
+                f"{groups['stencil_sweep']:.3f} ms, other device ops "
+                f"{groups['other']:.3f} ms [{top}]; "
+                f"{pads}{'' if ok else '  FAIL'}")
         if not ok:
-            failures.append(f"{cell['label']}: {pads} periodic-pad gathers, "
-                            f"{allowed} allowed")
+            failures.append(f"{cell['label']}: {pad['count']} pads "
+                            f"({allowed} allowed), {gathers} gather "
+                            f"launches ({expected_pad_gathers(run)} "
+                            f"allowed)")
         del x
 
 
@@ -1565,7 +1592,7 @@ def _device_breakdown(prof, wall_ms: float) -> str:
     from torch.autograd import DeviceType
     parts = {"kernels": 0.0, "H2D": 0.0, "D2H": 0.0, "other": 0.0}
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        if ev.device_type != DeviceType.CUDA or ev.is_user_annotation:
             continue
         ms = ev.self_device_time_total / 1e3
         name = ev.key.lower()
@@ -3025,7 +3052,7 @@ def _dist_split(prof, wall_ms: float) -> str:
     from torch.autograd import DeviceType
     kernels, busy = 0.0, 0.0
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA or ev.key.startswith("dist."):
+        if ev.device_type != DeviceType.CUDA or ev.is_user_annotation:
             continue
         ms = ev.self_device_time_total / 1e3
         busy += ms

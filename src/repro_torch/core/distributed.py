@@ -48,13 +48,13 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core import temporal
 from repro_torch.core.engine import StencilEngine
 from repro_torch.core.stencil_spec import StencilSpec
 from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.runtime import chaos
+from repro_torch.runtime import trace
 from repro_torch.runtime.chaos import FaultError
 from repro_torch.sharding.placement import P, block_index, unique_coords
 
@@ -389,13 +389,13 @@ def _haloed_input(blocks: np.ndarray, w: int, halo: _Halo
     axes, in array-axis order."""
     bufs = halo.buffers(blocks, w)
     b0 = blocks.flat[0]
-    with record_function("dist.halo_fill"):
+    with trace.span("dist.halo_fill"):
         for c, h in bufs.items():
             _fill_centre(h, blocks[c], w, halo.spec_ndim, halo.mesh_axes,
                          halo.periodic)
     interior = dict(enumerate(b0.shape))
     done: list[int] = []
-    with record_function("dist.exchange"):
+    with trace.span("dist.exchange"):
         for axis, mesh_axis in halo.mesh_axes.items():
             _exchange_axis(bufs, halo.mesh, axis, mesh_axis, w, done,
                            list(halo.mesh_axes), halo.periodic, interior)
@@ -518,12 +518,11 @@ def distributed_fused_chunk(state: ShardedState, *, t: int,
             torch.cuda.current_stream(h.device).wait_event(halo.ready[c])
         y = fused_core(h)
         if not periodic and t > 1:
-            with record_function("dist.zero_strips"):
-                y = _zero_boundary_strips(
-                    y.clone(), h, t=t, r=r, base_core=base_core,
-                    spec_ndim=spec.ndim,
-                    axinfo=_axis_info(b0.shape, c, state.mesh, spec.ndim,
-                                      mesh_axes))
+            y = _zero_boundary_strips(
+                y.clone(), h, t=t, r=r, base_core=base_core,
+                spec_ndim=spec.ndim,
+                axinfo=_axis_info(b0.shape, c, state.mesh, spec.ndim,
+                                  mesh_axes))
         out[c] = y
     return dataclasses.replace(state, blocks=out)
 
@@ -543,7 +542,7 @@ def _haloed_input_streamed(blocks: np.ndarray, w: int, halo: _Halo
         if dev not in start:
             start[dev] = torch.cuda.current_stream(dev).record_event()
     phase = {}
-    with record_function("dist.halo_fill"):
+    with trace.span("dist.halo_fill"):
         for c in coords:
             s = halo.copy_stream(c, blocks[c].device)
             s.wait_event(start[blocks[c].device])
@@ -555,7 +554,7 @@ def _haloed_input_streamed(blocks: np.ndarray, w: int, halo: _Halo
     interior = dict(enumerate(b0.shape))
     done: list[int] = []
     mesh = halo.mesh
-    with record_function("dist.exchange"):
+    with trace.span("dist.exchange"):
         for axis, mesh_axis in halo.mesh_axes.items():
             j = _mesh_axis_index(mesh, mesh_axis)
             n_dev = mesh.shape[j]

@@ -30,6 +30,7 @@ from repro_torch.core import halo
 from repro_torch.core import matrixization as mx
 from repro_torch.core import temporal
 from repro_torch.core.stencil_spec import StencilSpec
+from repro_torch.runtime import trace
 
 __all__ = ["StencilPlan", "StencilEngine", "choose_cover", "legal_covers",
            "default_block", "max_fuse_depth_for", "Backend",
@@ -594,12 +595,15 @@ class StencilEngine:
 
     def _apply_chunk(self, x: Tensor, t: int,
                      strategy: str = "operator") -> Tensor:
-        if t == 1:
-            return self._fn(x)
-        chunk_fn = self._chunk_fn(t, strategy)
-        if self.plan.boundary == "zero":
-            return self._zero_boundary_chunk(x, t, chunk_fn)
-        return chunk_fn(x)
+        """One chunk of ``t`` steps: an ``engine.chunk`` span, the parent
+        of the pads and launches it makes."""
+        with trace.span("engine.chunk"):
+            if t == 1:
+                return self._fn(x)
+            chunk_fn = self._chunk_fn(t, strategy)
+            if self.plan.boundary == "zero":
+                return self._zero_boundary_chunk(x, t, chunk_fn)
+            return chunk_fn(x)
 
     def _zero_boundary_chunk(self, x: Tensor, t: int,
                              chunk_fn: Callable) -> Tensor:

@@ -13,13 +13,20 @@ Tensors keep the reference layout: leading batch axes, then the spatial
 axes.  The periodic pad is an index gather per spatial axis, so it takes
 any number of leading axes and any halo width (``F.pad(mode="circular")``
 wants an ``(N, C, ...)`` layout and caps the pad at the extent).
+
+Every copy a pad makes (a gather an axis, or one zero pad) is a
+``halo.pad`` span (:mod:`repro_torch.runtime.trace`) of its input's and
+output's bytes, each counted once, timed on the card.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.runtime import trace
 
 __all__ = ["BOUNDARIES", "pad_mode", "pad_halo", "pad_trailing",
            "wrap_boundary", "halo_width", "check_boundary"]
@@ -27,6 +34,9 @@ __all__ = ["BOUNDARIES", "pad_mode", "pad_halo", "pad_trailing",
 BOUNDARIES = ("valid", "zero", "periodic")
 
 _PAD_MODE = {"zero": "constant", "periodic": "wrap"}
+
+#: the span of each copy a pad makes
+PAD_SPAN = "halo.pad"
 
 
 def check_boundary(boundary: str) -> str:
@@ -58,8 +68,21 @@ def _wrap_pad(x: torch.Tensor, pads) -> torch.Tensor:
         axis = lead + i
         n = x.shape[axis]
         idx = torch.arange(-lo, n + hi, device=x.device) % n
-        x = x.index_select(axis, idx)
+        with trace.span(PAD_SPAN, _copy_bytes, x.device, x, pads, i):
+            x = x.index_select(axis, idx)
     return x
+
+
+def _copy_bytes(x: torch.Tensor, pads, axis: int | None = None) -> int:
+    """Bytes a pad of ``x``'s trailing axes by ``pads`` reads and writes
+    (only axis ``axis`` of them, where given): its input and its output,
+    each once."""
+    lead = x.ndim - len(pads)
+    shape = list(x.shape)
+    for i, (lo, hi) in enumerate(pads):
+        if axis is None or i == axis:
+            shape[lead + i] += lo + hi
+    return (x.numel() + math.prod(shape)) * x.element_size()
 
 
 def pad_trailing(x: torch.Tensor, pads, boundary: str) -> torch.Tensor:
@@ -70,7 +93,8 @@ def pad_trailing(x: torch.Tensor, pads, boundary: str) -> torch.Tensor:
     if pad_mode(boundary) == "wrap":
         return _wrap_pad(x, pads)
     # F.pad lists (before, after) pairs from the LAST axis backwards
-    return F.pad(x, [p for pair in reversed(pads) for p in pair])
+    with trace.span(PAD_SPAN, _copy_bytes, x.device, x, pads):
+        return F.pad(x, [p for pair in reversed(pads) for p in pair])
 
 
 def pad_halo(x: torch.Tensor, r: int, ndim: int,

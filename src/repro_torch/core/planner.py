@@ -78,6 +78,7 @@ from repro_torch.core.engine import (StencilEngine, backend_names,
                                      legal_covers, max_fuse_depth_for,
                                      resolve_device)
 from repro_torch.core.stencil_spec import StencilSpec, from_numpy
+from repro_torch.runtime import trace
 
 __all__ = ["StencilProblem", "CandidateCost", "ExecutionPlan",
            "CompiledStencil", "plan", "compile_plan", "candidate_cost",
@@ -101,6 +102,10 @@ LAUNCH_OVERHEAD_S = 5e-6
 #: Backend names of the JAX package and the port's counterparts, applied
 #: when a plan of the JAX package is loaded here.
 REFERENCE_BACKENDS = {"pallas": "cuda", "jnp": "torch"}
+
+#: The span (:mod:`repro_torch.runtime.trace`) of one compiled call,
+#: single-device or distributed
+CALL_SPAN = "stencil.call"
 
 #: Shared memory a plan lets one block claim (two blocks per SM), re-exported
 #: from :mod:`matrixization`: the block search, fused-operator candidates
@@ -1138,7 +1143,8 @@ def _compile_distributed(eplan: ExecutionPlan, mesh, device,
         # through the stepper's __call__: the host-side dist.* chaos
         # wrapper lives there (one global read unless a FaultPlan is
         # active; the work and its exchange census are identical)
-        return stepper(x)
+        with trace.span(CALL_SPAN):
+            return stepper(x)
 
     return CompiledStencil(plan=eplan, fn=fn, stepper=stepper)
 
@@ -1182,9 +1188,10 @@ def compile_plan(eplan: ExecutionPlan, mesh=None, *, device="cuda",
     def fn(x: torch.Tensor) -> torch.Tensor:
         _check_plan_input(x, grid, nd, batch)
         eng._check_device(x)
-        for t in schedule:
-            x = eng._apply_chunk(x, t, strategy)
-        return x
+        with trace.span(CALL_SPAN):
+            for t in schedule:
+                x = eng._apply_chunk(x, t, strategy)
+            return x
 
     step = eng.step_fn() if eplan.boundary != "valid" else None
     return CompiledStencil(plan=eplan, fn=fn, step=step, engine=eng)

@@ -7,8 +7,10 @@ computes) and hands the price to whatever is recording on this thread —
 calibration chunk.  The price is the same whether the wrapper launches
 its kernel (a CUDA tensor) or runs its plain version (a CPU tensor), and
 the recorder does not count the plain version's own PyTorch ops, so a
-count does not depend on the device.  Nothing is priced while no
-recorder is active.
+count does not depend on the device.  While tracing is on
+(:mod:`repro_torch.runtime.trace`) the launch is also a ``kernel.<name>``
+span of the price's bytes.  Nothing is priced while no recorder is active
+and tracing is off.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import contextlib
 import dataclasses
 import threading
 from typing import Callable, Iterator
+
+from repro_torch.runtime import trace
 
 __all__ = ["LaunchCost", "recording", "kernel_region"]
 
@@ -54,16 +58,18 @@ def recording(recorder) -> Iterator[None]:
 def kernel_region(name: str,
                   price: Callable[[], LaunchCost]) -> Iterator[None]:
     """A wrapper's launch (or plain version): reports ``price()`` to the
-    active recorders, which ignore the ops run inside the block."""
+    active recorders, which ignore the ops run inside the block, and to
+    the trace as a ``kernel.<name>`` span."""
     stack = tuple(_stack())
-    if not stack:
+    if not stack and not trace.enabled():
         yield
         return
     cost = price()
     for rec in stack:
         rec.kernel_begin(name, cost)
     try:
-        yield
+        with trace.span(trace.KERNEL_PREFIX + name, cost.bytes):
+            yield
     finally:
         for rec in stack:
             rec.kernel_end()

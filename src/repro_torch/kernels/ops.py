@@ -19,13 +19,13 @@ import functools
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core import coefficient_lines as cl
 from repro_torch.core import halo
 from repro_torch.core.matrixization import center_slice
 from repro_torch.core.stencil_spec import StencilSpec, from_gather_coeffs
 from repro_torch.kernels import banded_mixer, stencil_mxu
+from repro_torch.runtime import trace
 
 __all__ = ["stencil_matrixized", "stencil_sweep_matrixized",
            "cuda_backend_core", "cuda_sweep_core", "stencil_apply_vjp",
@@ -408,7 +408,7 @@ class _BandedMix(torch.autograd.Function):
     def backward(ctx, g):
         x, band = ctx.saved_tensors
         dx = dband = None
-        with record_function("banded_mix_backward"):
+        with trace.span("banded_mix_backward"):
             if ctx.needs_input_grad[0]:
                 gf = torch.flip(g, dims=(-2,))
                 dx = torch.flip(_mix(gf, band, *ctx.tile, backward=True),

@@ -38,9 +38,9 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch.models.layers import dense_init
+from repro_torch.runtime import trace
 from repro_torch.sharding.rules import (axis_size, current_mesh,
                                         model_devices, shard)
 
@@ -128,7 +128,7 @@ def _moe_group(xt: torch.Tensor, p, mcfg, act: str, dropless: bool,
     expert-parallel branch's ``model`` slot devices."""
     t, d = xt.shape
     e = mcfg.num_experts
-    with record_function("moe_dispatch"):
+    with trace.span("moe_dispatch"):
         r = route(xt, p["router"], mcfg, dropless)
         # load-balance aux loss (Switch): E * sum_e f_e * p_e
         density = torch.mean(F.one_hot(r.experts[:, 0], e).to(torch.float32),
@@ -143,14 +143,14 @@ def _moe_group(xt: torch.Tensor, p, mcfg, act: str, dropless: bool,
     if slots is None:
         rows = r.cap if on_meta else min(r.cap, int(r.counts.max()))
         return _experts(xt, r, p, 0, r.keep, rows, act), aux.to(torch.float32)
-    with record_function("moe_dispatch"):
+    with trace.span("moe_dispatch"):
         counts = [r.cap] * e if on_meta else r.counts.tolist()
         flat_expert = r.experts.reshape(-1)
     n = e // len(slots)
     y = torch.zeros((t, d), dtype=torch.float32, device=xt.device)
     for m, dev in enumerate(slots):         # slot m: experts [lo, lo + n)
         lo = m * n
-        with record_function("moe_dispatch"):
+        with trace.span("moe_dispatch"):
             mine = r.keep & (flat_expert >= lo) & (flat_expert < lo + n)
             w = {k: p[k][lo:lo + n].to(dev)
                  for k in ("wi_gate", "wi_up", "wo")}
@@ -171,7 +171,7 @@ def _experts(xt: torch.Tensor, r: Routing, w, lo: int, keep: torch.Tensor,
     k = r.experts.shape[1]
     if rows == 0:                       # no token chose these experts
         return xt.new_zeros((t, d))
-    with record_function("moe_dispatch"):
+    with trace.span("moe_dispatch"):
         expert = torch.clamp(r.experts.reshape(-1) - lo, 0, n - 1)
         # an assignment not kept writes the spare row ``rows``, never read
         slot = torch.where(keep, r.pos, rows)
@@ -179,12 +179,12 @@ def _experts(xt: torch.Tensor, r: Routing, w, lo: int, keep: torch.Tensor,
         buf = buf.index_put((expert, slot),
                             xt.repeat_interleave(k, dim=0))[:, :rows]
     dtype = xt.dtype
-    with record_function("moe_experts"):
+    with trace.span("moe_experts"):
         g = torch.bmm(buf, w["wi_gate"].to(dtype))
         u = torch.bmm(buf, w["wi_up"].to(dtype))
         a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
         eo = torch.bmm(a * u, w["wo"].to(dtype))   # (n, rows, D)
-    with record_function("moe_dispatch"):
+    with trace.span("moe_dispatch"):
         out = eo[expert, torch.clamp(slot, max=rows - 1)]   # (T*k, D)
         out = torch.where(keep[:, None], out, 0.0) \
             * r.gates.reshape(-1, 1).to(dtype)

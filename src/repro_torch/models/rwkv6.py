@@ -17,10 +17,10 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch.models.layers import (dense, dense_init, rms_norm,
                                        rms_norm_init)
+from repro_torch.runtime import trace
 
 __all__ = ["init_rwkv_layer", "rwkv_time_mix", "rwkv_channel_mix",
            "RWKVState", "init_rwkv_state", "rwkv_time_mix_step", "CHUNK"]
@@ -141,7 +141,7 @@ def rwkv_time_mix(p, x, cfg, state: RWKVState | None = None):
                                   device=x.device), diagonal=-1)
     eye = torch.eye(CHUNK, dtype=f32, device=x.device)
     ys = []
-    with record_function("rwkv_chunks"):
+    with trace.span("rwkv_chunks"):
         for rr, kk, vv, lw in zip(rc, kc, vc, lwc):     # (B, H, L, C/V)
             lp = torch.cumsum(lw, dim=2)                # inclusive logs, <= 0
             lp_prev = lp - lw                           # exp(lp[t-1])

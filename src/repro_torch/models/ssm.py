@@ -17,11 +17,11 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch.kernels.ops import banded_mix
 from repro_torch.kernels.ref import banded_mixer_ref
 from repro_torch.models.layers import dense, dense_init
+from repro_torch.runtime import trace
 
 __all__ = ["init_ssm", "ssm_forward", "ssm_step", "SSMState",
            "init_ssm_state", "CHUNK"]
@@ -148,7 +148,7 @@ class _SelectiveScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gh):
-        with record_function("ssm_scan_backward"):
+        with trace.span("ssm_scan_backward"):
             return _SelectiveScan._backward(ctx, gy, gh)
 
     @staticmethod
@@ -202,7 +202,7 @@ def ssm_forward(p, xin, cfg, state: SSMState | None = None):
         p, xz, cfg, conv_tail=state.conv_tail if state is not None else None)
     dt, bb, cc = _dt_b_c(p, x, cfg)
 
-    with record_function("ssm_scan"):
+    with trace.span("ssm_scan"):
         a = -torch.exp(p["a_log"].to(torch.float32))            # (DI, N) < 0
         args = ((dt * x).to(torch.float32), bb.to(torch.float32),
                 cc.to(torch.float32), a)
@@ -227,7 +227,7 @@ def ssm_step(p, xin, cfg, state: SSMState):
     x, z, new_tail = _conv_act(p, xz, cfg, conv_tail=state.conv_tail)
     x, z = x[:, 0], z[:, 0]
     dt, bb, cc = _dt_b_c(p, x, cfg)
-    with record_function("ssm_scan"):
+    with trace.span("ssm_scan"):
         a = -torch.exp(p["a_log"].to(torch.float32))
         la = dt.to(torch.float32)[..., None] * a[None]
         u = (dt * x).to(torch.float32)[..., None] \

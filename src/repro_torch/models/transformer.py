@@ -37,7 +37,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -50,6 +49,7 @@ from repro_torch.models.attention_chunked import (chunked_attention,
 from repro_torch.models.layers import (dense, dense_init, embed_init,
                                        init_attention, mlp, mlp_init,
                                        rms_norm, rms_norm_init, rope)
+from repro_torch.runtime import trace
 from repro_torch.sharding.rules import axis_size, shard
 
 __all__ = ["build_pattern", "Layer", "Transformer", "init_params",
@@ -491,7 +491,7 @@ def _self_attention(p, x, cfg, positions, cache, window, mode):
             return _split_attention(p, x, cfg, positions, window,
                                     slots), None
     q, k, v = _project_qkv(p, x, cfg, positions)
-    with record_function("attention"):
+    with trace.span("attention"):
         if mode == "decode":
             new_cache = kvc.decode_write(cache, k, v)
             kk, vv, kpos, kmask = kvc.cache_view(new_cache)
@@ -536,7 +536,7 @@ def _split_attention(p, x, cfg, positions, window, slots):
             heads = slice(q_lo - kv_lo * group, q_hi - kv_lo * group)
             k = torch.repeat_interleave(k, group, dim=2)[:, :, heads]
             v = torch.repeat_interleave(v, group, dim=2)[:, :, heads]
-        with record_function("attention"):
+        with trace.span("attention"):
             out = chunked_attention(q, k, v, q_positions=pos,
                                     k_positions=pos, window=window,
                                     softcap=cfg.attn_softcap)
@@ -553,7 +553,7 @@ def _cross_attention(p, x, cfg, cond):
     q = dense(p["wq"], x).reshape(b, s, kvh, h // kvh, dh)
     k = dense(p["wk"], cond).reshape(b, cond.shape[1], kvh, dh)
     v = dense(p["wv"], cond).reshape(b, cond.shape[1], kvh, dh)
-    with record_function("attention"):
+    with trace.span("attention"):
         scores = torch.einsum("bskgd,btkd->bkgst", q.to(torch.float32),
                               k.to(torch.float32)) / math.sqrt(dh)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)

@@ -20,9 +20,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.runtime import trace
 from repro_torch.sharding.rules import shard, tp_slots
 
 __all__ = ["chunked_cross_entropy", "cross_entropy_dense"]
@@ -48,7 +48,7 @@ def _logits(h, w, transpose_head: bool):
 
 def _chunk_nll(h, w, lbl, m, transpose_head: bool):
     """(sum of the chunk's masked NLL, sum of its mask)."""
-    with record_function("cross_entropy"):
+    with trace.span("cross_entropy"):
         slots = tp_slots("cross_entropy", w.shape[0 if transpose_head else 1],
                          h.numel() * h.element_size()
                          + lbl.numel() * lbl.element_size(),

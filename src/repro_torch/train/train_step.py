@@ -48,7 +48,6 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.cells import _state_shardings
@@ -56,6 +55,7 @@ from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.models import transformer as tf
 from repro_torch.optim.adamw import AdamWState, adamw
 from repro_torch.optim.compression import make_compressor
+from repro_torch.runtime import trace
 from repro_torch.sharding import rules
 from repro_torch.sharding.placement import NamedPlacement, Placed, as_tensor
 from repro_torch.train.loss import chunked_cross_entropy
@@ -285,7 +285,7 @@ def make_train_step(cfg: ModelConfig, optimizer: adamw, ce_chunk: int = 512,
         batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
         params = _named(model)
         grads, loss, aux = _accumulate(model, loss_fn, batch, microbatches)
-        with record_function("adamw"):
+        with trace.span("adamw"):
             _, opt, metrics = optimizer.update(grads, state.opt, params,
                                                _decayed(model))
         metrics = dict(metrics, loss=loss, aux_loss=aux)
@@ -389,7 +389,7 @@ def sync_mean(group_grads, device, compression: Optional[str] = None,
     acc: dict = {}
     n = 0
     for g, grads in enumerate(group_grads):
-        with torch.no_grad(), record_function("sync_reduce"):
+        with torch.no_grad(), trace.span("sync_reduce"):
             if g not in residuals:
                 residuals[g] = init(grads)
             wire, residuals[g] = compress(grads, residuals[g])
@@ -403,7 +403,7 @@ def sync_mean(group_grads, device, compression: Optional[str] = None,
                     acc[name] = t
             del wire
         n += 1
-    with torch.no_grad(), record_function("sync_reduce"):
+    with torch.no_grad(), trace.span("sync_reduce"):
         for t in acc.values():
             t.mul_(1.0 / n)
     return acc
@@ -443,12 +443,12 @@ def _make_mesh_train_step(cfg: ModelConfig, optimizer: adamw,
                 yield grads
 
         with rules.activate(mesh):
-            with torch.no_grad(), record_function("sync_gather"):
+            with torch.no_grad(), trace.span("sync_gather"):
                 for dev in dict.fromkeys(_device_key(d) for d in groups):
                     _gather(state.compute[dev], leaves, names)
             acc = sync_mean(group_grads(), lead, compression, state.sync)
             sync_counts["reductions"] += len(leaves)
-            with torch.no_grad(), record_function("sync_scatter"):
+            with torch.no_grad(), trace.span("sync_scatter"):
                 blocks = _scatter(acc, leaves, names)
         pb, gb, mb, vb, db = {}, {}, {}, {}, {}
         mu = dict(rules.tree_items(state.opt.mu))
@@ -459,7 +459,7 @@ def _make_mesh_train_step(cfg: ModelConfig, optimizer: adamw,
                 pb[k], gb[k] = block, blocks.pop((key, c))
                 mb[k], vb[k] = mu[key].blocks[c], nu[key].blocks[c]
                 db[k] = placed.ndim >= 2       # the reference's rule
-        with record_function("adamw"):
+        with trace.span("adamw"):
             _, opt, metrics = optimizer.update(
                 gb, AdamWState(step=state.opt.step, mu=mb, nu=vb), pb, db)
         del gb
