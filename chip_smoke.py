@@ -36,12 +36,16 @@ Phases:
    against ``F.conv3d``; the sweep at both of its main-path shapes (the
    star2d_r2 chunk, and the varying+masked star2d_r1 chunk, which no one
    library call computes), and at the path's tile against a 128x128 tile,
-   in turns;
+   in turns; then (6b) the step kernel in wrap mode against the padded
+   path it replaced (periodic pad, tile pad, valid-mode kernel, crop),
+   bit for bit, at the box2d_r1 and star3d_r2 cells' step chunks and at
+   a ragged 3-D grid, both timed with CUDA events in turns;
 7. time each cell's warm run on the host clock and break one profiled
    run's device time into the two kernels and everything else, with the
    pads counted twice, by the port's ``halo.pad`` spans (count, bytes,
-   device ms) and by the device's gather launches: only the step kernel's
-   chunks may pad;
+   device ms) and by the device's gather launches: the cells are
+   periodic, so no chunk may pad, and every step launch is a wrap-mode
+   one (``stencil_cuda_call.wrap_launches``);
 8. hold the LM kernels against their plain versions: the banded mixer
    (shared and depthwise band, W in {1, 2, 4}, T = 1539, D = 3237, batch 1
    and 4, f32 and bf16) and flash attention (causal and full, f32 and
@@ -321,6 +325,11 @@ CELLS = (
          grid=(4096, 4096), steps=8, strategy="inkernel", scenario=True),
 )
 
+# phase 6b: a ragged 3-D grid for the wrap-mode step kernel against the
+# padded path (the star3d_r2 cell's step chunk, whose tile divides none of
+# these extents)
+STEP_WRAP_RAGGED = (250, 300, 270)
+
 
 # phases 8-10: the LM slice at Hymba-1.5B's widths
 BANDED_RAGGED = (1539, 3200 + 37)       # (T, D): prefill rows, ragged D
@@ -486,6 +495,10 @@ def kernel_cases(device, cases=KERNEL_CASES):
                     yield (label, sm.stencil_cuda_call(x, plan, aux),
                            sm.stencil_step_plain(x, plan, aux),
                            KERNEL_TOL[dtype])
+                    yield wrap_step_case(spec, cover, block, out, batch,
+                                         dtype, seed + 600, device,
+                                         f"step  {name} {out} {dtype} "
+                                         f"{scenario} batch={batch} wrap")
                     w = steps * r
                     x = seeded_normal(lead + tuple(n + 2 * w for n in out),
                                       seed + 200, device)
@@ -519,10 +532,27 @@ def kernel_cases(device, cases=KERNEL_CASES):
                                KERNEL_TOL[dtype])
 
 
+def wrap_step_case(spec, cover, block, out, batch, dtype, seed, device,
+                   label):
+    """(label, kernel output, plain output, tolerance) of the step kernel in
+    wrap mode: the unpadded periodic state of extents ``out`` (ragged
+    tiles masked in the kernel), state-shaped aux operands."""
+    import torch
+    from repro_torch.kernels import stencil_mxu as sm
+    lead = (batch,) if batch else ()
+    x = seeded_normal(lead + tuple(out), seed, device).to(
+        getattr(torch, dtype))
+    aux = () if spec.is_constant_dense else seeded_aux(out, seed + 1, device)
+    plan = sm.build_kernel_plan(spec, cover, block, batch=batch, wrap=True)
+    return (label, sm.stencil_cuda_call(x, plan, aux),
+            sm.stencil_step_plain(x, plan, aux), KERNEL_TOL[dtype])
+
+
 def step_edge_cases(device, cases=STEP_EDGE_CASES):
     """Yield (label, kernel output, plain output, tolerance) for the step
     kernel at :data:`STEP_EDGE_CASES`: constant and varying+masked, f32
-    and bf16, unbatched and batch 3."""
+    and bf16, unbatched and batch 3, on a haloed input and in wrap
+    mode."""
     import numpy as np
     import torch
     from repro_torch.core import coefficient_lines as cl
@@ -556,6 +586,11 @@ def step_edge_cases(device, cases=STEP_EDGE_CASES):
                            sm.stencil_cuda_call(x, plan, aux),
                            sm.stencil_step_plain(x, plan, aux),
                            KERNEL_TOL[dtype])
+                    yield wrap_step_case(spec, cover, block, out, batch,
+                                         dtype, seed + 600, device,
+                                         f"step  {name} tile {block} {out} "
+                                         f"{dtype} {scenario} batch={batch} "
+                                         f"wrap")
 
 
 def check_cases(device, failures: list, cases) -> None:
@@ -671,7 +706,7 @@ def path_launches(cell, run, device):
         block = tuple(min(b, s) for b, s in zip(e.plan.block, grid))
         w = steps * spec.order
         state = seeded_normal(grid, 2000 + t, device)
-        # the haloed input: the step kernel's, and the library's yardstick
+        # the haloed input: the library's yardstick
         haloed = halo.pad_halo(state, w, spec.ndim, "periodic")
         if name == "stencil_sweep":
             # the path's periodic sweep takes the unpadded state (wrap mode)
@@ -682,10 +717,11 @@ def path_launches(cell, run, device):
                                               scratch=e.scratch, wrap=True)
             kernel, plain = sm.sweep_cuda_call, sm.sweep_plain
         else:
-            x = haloed = ops._pad_to_multiple(haloed, block, w, spec.ndim)
-            mode = "haloed"
-            aux = ops._scenario_aux_single(spec, grid, block, device)
-            plan = sm.build_kernel_plan(spec, cover, block)
+            # so does the path's periodic step (wrap mode)
+            x, mode = state, "wrap mode"
+            aux = ops._scenario_aux_single(spec, grid, block, device,
+                                           tiled=False)
+            plan = sm.build_kernel_plan(spec, cover, block, wrap=True)
             kernel, plain = sm.stencil_cuda_call, sm.stencil_step_plain
         yield dict(
             name=name, t=t, spec=spec, cover=cover, steps=steps, x=x,
@@ -877,6 +913,82 @@ def compare_sweep_tiles(device, main: dict, failures: list) -> None:
     del case, x
 
 
+def step_wrap_vs_padded(device, main: dict, failures: list) -> None:
+    """The step kernel in wrap mode (the unpadded periodic state, its halo
+    read through wrapped indices, ragged tiles masked) against the padded
+    path it replaces (``halo.pad_halo``, the tile pad, the valid-mode
+    kernel, the crop): equal bit for bit, and one wrap-mode launch a
+    call, at the step chunks of the box2d_r1 and star3d_r2 cells and at
+    the star3d_r2 chunk on :data:`STEP_WRAP_RAGGED`, constant and
+    varying+masked.  Both timed with CUDA events in turns (wrap, padded,
+    padded, wrap), and the padded path's kernel alone on its padded
+    input."""
+    import numpy as np
+    import torch
+    from repro_torch.core import halo
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_mxu as sm
+
+    cases = []
+    for cell in (CELLS[1], CELLS[2]):
+        case = [c for c in path_launches(cell, main["runs"][cell["label"]],
+                                         device)
+                if c["name"] == "stencil_step"][-1]
+        cases.append((case["label"], case["spec"], case["cover"],
+                      case["block"], case["x"]))
+        del case
+    base, cover, block = cases[-1][1:4]
+    for scenario in ("constant", "varying+masked"):
+        spec = base if scenario == "constant" else base.with_field(
+            np.ones(STEP_WRAP_RAGGED),
+            domain_mask=np.ones(STEP_WRAP_RAGGED, bool))
+        cases.append((f"stencil_step {spec.describe()} {scenario}, block "
+                      f"{block}, ragged state {STEP_WRAP_RAGGED}", spec,
+                      cover, block,
+                      seeded_normal(STEP_WRAP_RAGGED, 2900, device)))
+    for label, spec, cover, block, x in cases:
+        nd, r = spec.ndim, spec.order
+        grid = tuple(x.shape[-nd:])
+        aux = () if spec.is_constant_dense else seeded_aux(grid, 2901,
+                                                           device)
+        xp = ops._pad_to_multiple(halo.pad_halo(x, r, nd, "periodic"),
+                                  block, r, nd)
+        out = tuple(n - 2 * r for n in xp.shape[-nd:])
+        tiled = tuple(halo.pad_trailing(
+            a, [(0, o - g) for g, o in zip(grid, out)], "zero").contiguous()
+            for a in aux)
+        wplan = sm.build_kernel_plan(spec, cover, block, wrap=True)
+        vplan = sm.build_kernel_plan(spec, cover, block)
+        crop = tuple(slice(0, g) for g in grid)
+        runs = {
+            "wrap": lambda: sm.stencil_cuda_call(x, wplan, aux),
+            "padded": lambda: sm.stencil_cuda_call(
+                ops._pad_to_multiple(halo.pad_halo(x, r, nd, "periodic"),
+                                     block, r, nd), vplan, tiled)[crop]}
+        before = sm.stencil_cuda_call.wrap_launches
+        got = runs["wrap"]()
+        wraps = sm.stencil_cuda_call.wrap_launches - before
+        want = runs["padded"]()
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want)) and got.shape == x.shape
+        del got, want
+        times = {"wrap": [], "padded": []}
+        for key in ("wrap", "padded", "padded", "wrap"):
+            times[key].append(cuda_ms(runs[key], reps=10))
+        kernel_ms = cuda_ms(lambda: sm.stencil_cuda_call(xp, vplan, tiled),
+                            reps=10)
+        ok = equal and wraps == 1
+        log(f"  {label}: wrap mode {times['wrap'][0]:.3f}, "
+            f"{times['wrap'][1]:.3f} ms; padded path "
+            f"{times['padded'][0]:.3f}, {times['padded'][1]:.3f} ms (its "
+            f"kernel alone {kernel_ms:.3f} ms); bit-equal={equal}, "
+            f"wrap launches {wraps}{'' if ok else '  FAIL'}")
+        if not ok:
+            failures.append(f"step wrap mode vs the padded path: {label}: "
+                            f"bit-equal={equal}, {wraps} wrap launches")
+        del xp, tiled, aux, x, runs
+
+
 def _time_row(name, source, replaces, launches, failures, *, kernel, plain,
               library, inputs, flops_per_out, desc, tol=None,
               library_name="F.conv2d", rate="f32", library_reps=20) -> dict:
@@ -926,23 +1038,10 @@ def _time_row(name, source, replaces, launches, failures, *, kernel, plain,
 # phase 7: where a whole cell's time goes
 # ---------------------------------------------------------------------------
 
-def expected_pad_gathers(run) -> int:
-    """Periodic-pad gathers a cell's run may launch: one ``index_select``
-    per spatial axis for every chunk the step kernel runs (the halo layer
-    pads its haloed input); the sweep kernel's chunks read the periodic
-    halo themselves and pad nothing."""
+def step_chunks(run) -> int:
+    """Chunks of a cell's run that launch the step kernel: every chunk but
+    the in-kernel sweeps'."""
     p = run.plan
-    return sum(p.spec.ndim for t in p.fuse_schedule
-               if not (t > 1 and p.fuse_strategy == "inkernel"))
-
-
-def expected_tile_pads(run) -> int:
-    """Zero pads to whole tiles a cell's run may make: one for every chunk
-    the step kernel runs where the tile does not divide the grid (none at
-    the cells' full sizes)."""
-    p = run.plan
-    if not any(g % min(b, g) for g, b in zip(p.grid, p.block)):
-        return 0
     return sum(1 for t in p.fuse_schedule
                if not (t > 1 and p.fuse_strategy == "inkernel"))
 
@@ -952,16 +1051,19 @@ def cell_breakdown(device, main: dict, failures: list) -> None:
     the host clock (median of 3, each ending in a synchronize), and from
     one profiled run the device time of the two kernels and of every other
     device op, and the pads from the port's own ``halo.pad`` spans
-    (``runtime/trace.py``): their count (more than
-    :func:`expected_pad_gathers` and :func:`expected_tile_pads` fails the
-    run), bytes and device time by the spans' CUDA events.  The device
-    ops whose names hold "gather" are counted too, whoever launched them:
-    more than :func:`expected_pad_gathers` fails the run, so a pad made
-    outside ``halo.pad_trailing`` cannot hide from the check."""
+    (``runtime/trace.py``): their count, bytes and device time by the
+    spans' CUDA events.  The cells are periodic, so both kernels read the
+    halo of the unpadded state through wrapped indices: any pad fails the
+    run, and so does a step launch that is not a wrap-mode one (the
+    step kernel's ``wrap_launches`` must equal :func:`step_chunks`).  The
+    device ops whose names hold "gather" are counted too, whoever
+    launched them: any fails the run, so a pad made outside
+    ``halo.pad_trailing`` cannot hide from the check."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import stencil_mxu as sm
     from repro_torch.runtime import trace
 
     for i, cell in enumerate(CELLS):
@@ -976,12 +1078,16 @@ def cell_breakdown(device, main: dict, failures: list) -> None:
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         wall = statistics.median(walls)
+        launched = (sm.stencil_cuda_call.launches,
+                    sm.stencil_cuda_call.wrap_launches)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run(x)
             torch.cuda.synchronize()
             prof_wall = (time.perf_counter() - t0) * 1e3
+        steps = sm.stencil_cuda_call.launches - launched[0]
+        wraps = sm.stencil_cuda_call.wrap_launches - launched[1]
         pad = trace.session().get(
             "halo.pad", {"count": 0, "bytes": 0, "device_s": None})
         groups = {"stencil_step": 0.0, "stencil_sweep": 0.0, "other": 0.0}
@@ -999,16 +1105,15 @@ def cell_breakdown(device, main: dict, failures: list) -> None:
                 if "gather" in ev.key.lower():
                     gathers += ev.count
                     gather_ms += ms
-        allowed = expected_pad_gathers(run) + expected_tile_pads(run)
-        ok = (pad["count"] <= allowed
-              and gathers <= expected_pad_gathers(run))
+        ok = (pad["count"] == 0 and gathers == 0
+              and steps == wraps == step_chunks(run))
         pad_ms = ("not measured" if pad["device_s"] is None
                   else f"{pad['device_s'] * 1e3:.3f} ms")
         pads = (f"pads (halo.pad spans) {pad['count']} copies, "
-                f"{pad['bytes'] / 1e9:.3f} GB, {pad_ms} (the step kernel's "
-                f"chunks allow {allowed}); gather launches on the device "
-                f"{gathers}, {gather_ms:.3f} ms (allowed "
-                f"{expected_pad_gathers(run)})")
+                f"{pad['bytes'] / 1e9:.3f} GB, {pad_ms}; gather launches on "
+                f"the device {gathers}, {gather_ms:.3f} ms (none allowed); "
+                f"step launches {steps}, in wrap mode {wraps} (the "
+                f"schedule's step chunks: {step_chunks(run)})")
         if sum(groups.values()) == 0.0:
             log(f"  {cell['label']}: warm run {wall:.3f} ms (host clock); "
                 f"the profiler saw no device time: breakdown not measured; "
@@ -1023,10 +1128,10 @@ def cell_breakdown(device, main: dict, failures: list) -> None:
                 f"{groups['other']:.3f} ms [{top}]; "
                 f"{pads}{'' if ok else '  FAIL'}")
         if not ok:
-            failures.append(f"{cell['label']}: {pad['count']} pads "
-                            f"({allowed} allowed), {gathers} gather "
-                            f"launches ({expected_pad_gathers(run)} "
-                            f"allowed)")
+            failures.append(f"{cell['label']}: {pad['count']} pads, "
+                            f"{gathers} gather launches (none allowed); "
+                            f"{steps} step launches, {wraps} in wrap mode "
+                            f"({step_chunks(run)} step chunks)")
         del x
 
 
@@ -4074,6 +4179,9 @@ def main() -> int:
     log("phase 6: kernel times at the path's shapes (CUDA events, median)")
     rows = time_kernels(device, main_run, failures)
     compare_sweep_tiles(device, main_run, failures)
+    log("phase 6b: the step kernel in wrap mode against the padded path, "
+        "bit for bit (CUDA events)")
+    step_wrap_vs_padded(device, main_run, failures)
 
     log("phase 7: whole cells, warm (host clock; device time by profiler)")
     cell_breakdown(device, main_run, failures)

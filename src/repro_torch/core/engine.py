@@ -154,6 +154,10 @@ class Backend:
     #                           a block's shared memory, so the planner and
     #                           the fuse-depth chooser (its smem_gate) drop
     #                           fused operators whose tile does not fit
+    wraps: bool = False       # True: builder(plan, boundary="periodic")
+    #                           returns a shape-preserving core that reads
+    #                           the periodic halo itself, so the engine
+    #                           does not pad the state for it
 
     def effective_efficiency(self, compute_factors=None) -> float:
         """The backend's calibratable efficiency model: ``efficiency``
@@ -176,6 +180,7 @@ def register_backend(name: str, builder: Callable, *,
                      flops_model: Callable | None = None,
                      sweep_builder: Callable | None = None,
                      smem_tiles: bool = False,
+                     wraps: bool = False,
                      overwrite: bool = False) -> Backend:
     """Register a stencil execution backend.
 
@@ -196,7 +201,10 @@ def register_backend(name: str, builder: Callable, *,
     the halo in the kernel) — accept ``**opts`` so new options stay
     backward-compatible.  ``smem_tiles=True`` marks kernels that keep the
     haloed tile in shared memory (fused operators are then gated by
-    ``matrixization.step_smem_bytes``).
+    ``matrixization.step_smem_bytes``).  ``wraps=True`` marks a builder
+    that also takes ``boundary="periodic"`` and then returns a
+    shape-preserving core reading the periodic halo itself; the engine
+    uses it instead of padding the state for the valid-mode core.
 
     Raises ``ValueError`` on duplicate names unless ``overwrite=True``.
     """
@@ -206,7 +214,8 @@ def register_backend(name: str, builder: Callable, *,
     be = Backend(name=name, builder=builder, efficiency=float(efficiency),
                  supports=supports or (lambda spec: True),
                  uses_cover=uses_cover, flops_model=flops_model,
-                 sweep_builder=sweep_builder, smem_tiles=smem_tiles)
+                 sweep_builder=sweep_builder, smem_tiles=smem_tiles,
+                 wraps=wraps)
     _BACKENDS[name] = be
     return be
 
@@ -236,9 +245,10 @@ def _codegen_builder(plan: StencilPlan, **_opts) -> Callable:
     return generate_update(plan).fn
 
 
-def _cuda_builder(plan: StencilPlan, **_opts) -> Callable:
+def _cuda_builder(plan: StencilPlan, *, boundary: str = "valid",
+                  **_opts) -> Callable:
     from repro_torch.kernels import ops as kops
-    return kops.cuda_backend_core(plan)
+    return kops.cuda_backend_core(plan, boundary=boundary)
 
 
 def _cuda_sweep_builder(plan: StencilPlan, steps: int, *,
@@ -268,7 +278,8 @@ register_backend("codegen", _codegen_builder, efficiency=0.8,
                  supports=lambda spec: spec.is_constant_dense)
 register_backend("cuda", _cuda_builder, efficiency=0.25,
                  flops_model=mx.tap_flops,
-                 sweep_builder=_cuda_sweep_builder, smem_tiles=True)
+                 sweep_builder=_cuda_sweep_builder, smem_tiles=True,
+                 wraps=True)
 
 
 class StencilEngine:
@@ -305,8 +316,7 @@ class StencilEngine:
                                 boundary=halo.check_boundary(boundary))
         self.scratch = temporal.check_scratch(scratch)
         self._core = self._build_core()
-        self._fn = halo.wrap_boundary(self._core, spec.order, spec.ndim,
-                                      boundary)
+        self._fn = self._boundary_fn()
         # built-core caches: keys carry EVERY argument that changes the
         # built core beyond the engine's own frozen plan — fused_engine
         # keys the depth (the cover option is compatibility-checked and
@@ -325,12 +335,23 @@ class StencilEngine:
     # -- construction -------------------------------------------------------
     def _build_core(self) -> Callable[[Tensor], Tensor]:
         """The valid-mode update via the backend registry; boundary handling
-        is layered on by :func:`repro_torch.core.halo.wrap_boundary`."""
+        is layered on by :meth:`_boundary_fn`."""
         backend = get_backend(self.plan.backend)
         if not backend.supports(self.plan.spec):
             raise ValueError(f"backend {backend.name!r} does not support "
                              f"{self.plan.spec.describe()}")
         return backend.builder(self.plan)
+
+    def _boundary_fn(self) -> Callable[[Tensor], Tensor]:
+        """The shape-preserving update at the plan's boundary: at
+        'periodic' the backend's own wrap core where it has one (the step
+        kernel reads the halo through wrapped indices, as the sweep kernel
+        does), else the valid-mode core lifted by the halo layer."""
+        plan, backend = self.plan, get_backend(self.plan.backend)
+        if plan.boundary == "periodic" and backend.wraps:
+            return backend.builder(plan, boundary="periodic")
+        return halo.wrap_boundary(self._core, plan.spec.order,
+                                  plan.spec.ndim, plan.boundary)
 
     def _check_device(self, x: Tensor) -> None:
         if x.device.type != self.device.type or (

@@ -1,11 +1,12 @@
 """Public wrappers around the Hopper kernels.
 
-Handles the boundary pad, padding to block multiples, the scenario
-operands and batch axes.  Leading axes beyond ``spec.ndim`` are folded
-into ONE kernel batch dimension (the kernels' second grid dimension): the
-whole batch rides one launch and one tap table, and every state is
-computed by exactly the code a single state runs, so batched output is
-bit-exact against per-state output.
+Handles the boundary pad (none at 'periodic': both kernels read the
+periodic halo of the unpadded state through wrapped indices), padding to
+block multiples, the scenario operands and batch axes.  Leading axes
+beyond ``spec.ndim`` are folded into ONE kernel batch dimension (the
+kernels' second grid dimension): the whole batch rides one launch and one
+tap table, and every state is computed by exactly the code a single state
+runs, so batched output is bit-exact against per-state output.
 
 A CPU tensor goes through the kernels' plain versions; a CUDA tensor
 launches the kernels (see :mod:`repro_torch.kernels.stencil_mxu`).
@@ -32,18 +33,20 @@ __all__ = ["stencil_matrixized", "stencil_sweep_matrixized",
            "banded_mix"]
 
 
-def cuda_backend_core(plan):
-    """Valid-mode core for the engine/planner backend registry.
+def cuda_backend_core(plan, boundary: str = "valid"):
+    """Step-kernel core for the engine/planner backend registry.
 
-    ``plan`` is a :class:`repro_torch.core.engine.StencilPlan`; the
-    returned callable is the registry contract (shrinks each spatial axis
-    by ``2 * spec.order``) backed by the step kernel.  The core keeps its
+    ``plan`` is a :class:`repro_torch.core.engine.StencilPlan`.  At
+    ``boundary="valid"`` the returned callable is the registry contract
+    (shrinks each spatial axis by ``2 * spec.order``); at
+    ``boundary="periodic"`` it keeps the shape, and the kernel reads the
+    periodic halo of the unpadded state itself.  The core keeps its
     scenario operands, built on the device once per input shape, for every
     later call.
     """
     return functools.partial(stencil_matrixized, spec=plan.spec,
                              cover=plan.cover, block=plan.block,
-                             aux_cache={}, plan_cache={})
+                             boundary=boundary, aux_cache={}, plan_cache={})
 
 
 def cuda_sweep_core(plan, steps: int, *, scratch: str = "pingpong",
@@ -86,16 +89,19 @@ def _scenario_fields(spec: StencilSpec, device):
 
 
 def _scenario_aux_single(spec: StencilSpec, out_sizes, block,
-                         device) -> tuple[torch.Tensor, ...]:
+                         device, tiled: bool = True
+                         ) -> tuple[torch.Tensor, ...]:
     """OUTPUT-aligned aux operands for the step kernel.
 
     Field then mask, each center-sliced to the valid output extent and
     zero-padded on the trailing edge to tile multiples (the padded rows are
-    cropped with the output).
+    cropped with the output) — unless ``tiled`` is False, for a wrap-mode
+    launch, whose kernel masks the ragged tiles.
     """
     if spec.is_constant_dense:
         return ()
-    tile = [(0, (-s) % b) for s, b in zip(out_sizes, block)]
+    tile = [(0, (-s) % b if tiled else 0)
+            for s, b in zip(out_sizes, block)]
     return tuple(
         halo.pad_trailing(center_slice(a, out_sizes), tile, "zero")
         .contiguous() for a in _scenario_fields(spec, device))
@@ -194,16 +200,20 @@ def stencil_matrixized(x: torch.Tensor, *, spec: StencilSpec,
                        plan_cache: dict | None = None) -> torch.Tensor:
     """Stencil via the step kernel. Batch axes lead.
 
-    ``boundary`` uses the shared halo layer: 'valid' (default) shrinks the
-    spatial extent by ``spec.order`` per side; 'zero'/'periodic' pad first
-    and preserve shape.  ``aux_cache``, when given, keeps the scenario
+    'valid' (default) shrinks the spatial extent by ``spec.order`` per
+    side; 'zero' pads first through the shared halo layer and preserves
+    shape; 'periodic' preserves shape and pads nothing: the kernel takes
+    the unpadded state, reads its halo through wrapped indices and masks
+    the ragged tiles.  ``aux_cache``, when given, keeps the scenario
     operands built for one input shape for the next call with it;
     ``plan_cache`` keeps the kernel plan (and so its tap table) of each
-    tile and batch.
+    tile, batch and input contract.
     """
-    x = halo.pad_halo(x, spec.order, spec.ndim, boundary)
     nd, r = spec.ndim, spec.order
-    out_sizes = tuple(int(x.shape[x.ndim - nd + a]) - 2 * r
+    wrap = halo.check_boundary(boundary) == "periodic"
+    if not wrap:
+        x = halo.pad_halo(x, r, nd, boundary)
+    out_sizes = tuple(int(x.shape[x.ndim - nd + a]) - (0 if wrap else 2 * r)
                       for a in range(nd))
     if any(s <= 0 for s in out_sizes):
         raise ValueError(f"input {tuple(x.shape)} too small for order {r}")
@@ -214,17 +224,17 @@ def stencil_matrixized(x: torch.Tensor, *, spec: StencilSpec,
     if block is None:
         block = _default_block(spec, out_sizes, r, batch)
     block = tuple(min(b, s) for b, s in zip(block, out_sizes))
-    aux = _cached(aux_cache, (out_sizes, block, x.device),
+    aux = _cached(aux_cache, (out_sizes, block, wrap, x.device),
                   lambda: _scenario_aux_single(spec, out_sizes, block,
-                                               x.device))
+                                               x.device, tiled=not wrap))
 
     def call(xc, b):
-        plan = _cached(plan_cache, (block, b),
+        plan = _cached(plan_cache, (block, b, wrap),
                        lambda: stencil_mxu.build_kernel_plan(
-                           spec, cover, block, batch=b))
+                           spec, cover, block, batch=b, wrap=wrap))
         return stencil_mxu.stencil_cuda_call(xc, plan, aux=aux)
 
-    return _run_batched(x, spec, r, block, out_sizes, call)
+    return _run_batched(x, spec, r, block, out_sizes, call, pad=not wrap)
 
 
 def stencil_sweep_matrixized(x: torch.Tensor, *, spec: StencilSpec,

@@ -5,12 +5,14 @@ Two hand-written CUDA kernels (``csrc/stencil_step.cu``,
 ``csrc/stencil_sweep.cu``, built for ``sm_90a`` by :mod:`cuda_build`)
 replace the JAX package's two Pallas TPU kernels:
 
-* :func:`stencil_cuda_call` — one valid-mode step (replaces
+* :func:`stencil_cuda_call` — one step (replaces
   ``repro.kernels.stencil_mxu.stencil_pallas_call``);
 * :func:`sweep_cuda_call` — T base steps in one kernel with shared-memory
   intermediates, ``fuse_strategy="inkernel"`` (replaces
-  ``sweep_pallas_call``); in wrap mode it takes the unpadded periodic
-  state and reads the halo through wrapped indices.
+  ``sweep_pallas_call``).
+
+Each takes a haloed input (valid mode) or, in wrap mode, the unpadded
+periodic state, whose halo it reads through wrapped indices.
 
 One CUDA block owns one output tile of one state and keeps the haloed slab
 in shared memory.  Every coefficient line of the cover is applied as its
@@ -29,7 +31,8 @@ launch.
 Routing: a wrapper given a CPU tensor runs its plain version (whole-tensor
 shifted adds, the same taps in the same order); given a CUDA tensor it
 launches its kernel or raises — there is no fallback.  Each wrapper counts
-its launches in ``<wrapper>.launches``.
+its launches in ``<wrapper>.launches``, and its wrap-mode launches also in
+``<wrapper>.wrap_launches``.
 """
 from __future__ import annotations
 
@@ -53,7 +56,8 @@ __all__ = ["KernelPlan", "build_kernel_plan", "stencil_cuda_call",
            "stencil_step_plain", "SweepKernelPlan",
            "build_sweep_kernel_plan", "sweep_cuda_call", "sweep_plain",
            "sweep_aux_shape", "step_launch_cost", "sweep_launch_cost",
-           "tap_runs", "tap_table", "SCRATCH_MODES", "MAX_BATCH"]
+           "step_lead", "tap_runs", "tap_table", "SCRATCH_MODES",
+           "MAX_BATCH"]
 
 #: The batch rides the kernels' second grid dimension (at most 65535).
 MAX_BATCH = 65535
@@ -139,7 +143,11 @@ class KernelPlan:
     wrapper expect a leading batch axis of that extent (one grid row of
     blocks per state).  ``n_aux`` scenario operands (field, then mask) are
     OUTPUT-aligned f32 inputs multiplied into the accumulator before the
-    cast, shared across the batch.
+    cast, shared across the batch.  ``wrap`` is the input contract, as
+    :class:`SweepKernelPlan`'s: False takes the ``r``-haloed input with
+    tile-multiple outputs (boundaries 'valid' and 'zero'), True the
+    unpadded periodic state of any extents, whose halo the kernel reads
+    through wrapped indices (boundary 'periodic').
     """
 
     spec: StencilSpec
@@ -148,6 +156,7 @@ class KernelPlan:
     point_taps: tuple[tuple[float, tuple[int, ...]], ...]
     batch: int | None = None
     n_aux: int = 0
+    wrap: bool = False
 
     @functools.cached_property
     def taps(self) -> tuple[Tap, ...]:
@@ -156,7 +165,8 @@ class KernelPlan:
 
 def build_kernel_plan(spec: StencilSpec, cover: LineCover,
                       block: tuple[int, ...],
-                      batch: int | None = None) -> KernelPlan:
+                      batch: int | None = None,
+                      wrap: bool = False) -> KernelPlan:
     if len(block) != spec.ndim:
         raise ValueError(f"block rank {len(block)} != stencil ndim {spec.ndim}")
     if batch is not None and batch < 1:
@@ -165,7 +175,7 @@ def build_kernel_plan(spec: StencilSpec, cover: LineCover,
     return KernelPlan(spec=spec, block=tuple(int(b) for b in block),
                       band_lines=band_lines, point_taps=point_taps,
                       batch=None if batch is None else int(batch),
-                      n_aux=mx.n_aux_operands(spec))
+                      n_aux=mx.n_aux_operands(spec), wrap=bool(wrap))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,6 +263,28 @@ def _check_input(x: torch.Tensor, plan, halo_width: int):
     return out_shape
 
 
+def _check_state(x: torch.Tensor, plan, what: str):
+    """Validate the (optionally batched) unpadded state a wrap-mode plan
+    takes; returns its spatial shape, which is the output's."""
+    nd = plan.spec.ndim
+    lead = 0 if plan.batch is None else 1
+    if x.ndim != nd + lead or (lead and x.shape[0] != plan.batch):
+        raise ValueError(f"wrap-mode {what} expects a ([{plan.batch}], "
+                         f"spatial...) state, got {tuple(x.shape)}")
+    out_shape = tuple(x.shape[lead:])
+    if any(s <= 0 for s in out_shape):
+        raise ValueError(f"empty state {tuple(x.shape)}")
+    return out_shape
+
+
+def _step_shape(x: torch.Tensor, plan: KernelPlan):
+    """The step kernel's spatial output shape, under the plan's input
+    contract."""
+    if plan.wrap:
+        return _check_state(x, plan, "step")
+    return _check_input(x, plan, plan.spec.order)
+
+
 def _check_aux(aux: Sequence[torch.Tensor], plan, shape, what: str):
     if len(aux) != plan.n_aux:
         raise ValueError(f"plan expects {plan.n_aux} aux operand(s), "
@@ -294,14 +326,24 @@ def _run_table(taps: Sequence[Tap], strides: Sequence[int],
         len(runs)
 
 
+def step_lead(plan: KernelPlan) -> int:
+    """Storage column of slab column 0 in the step kernel's slab rows: 0
+    on a haloed input; in wrap mode ``-r`` modulo 4, since the slab then
+    starts ``r`` columns before a tile origin and the kernel stores its
+    rows so that storage and input columns agree modulo 4 (16-byte
+    copies)."""
+    return (-plan.spec.order) % 4 if plan.wrap else 0
+
+
 def _step_table(taps: Sequence[Tap], block: Sequence[int],
-                halo_width: int) -> tuple[np.ndarray, int]:
+                halo_width: int, lead: int = 0) -> tuple[np.ndarray, int]:
     """The step kernel's tap table (:func:`_run_table`): offsets from the
-    slab origin, at the step kernel's row pitch."""
+    slab origin, at the step kernel's row pitch, each ``lead`` words
+    further (:func:`step_lead`)."""
     slab = [b + 2 * halo_width for b in block]
     strides = _slab_strides(slab, mx.step_slab_pitch(tuple(block),
                                                       halo_width))
-    return _run_table(taps, strides, (0, 0, 0))
+    return _run_table(taps, strides, (0, 0, -lead))
 
 
 def _sweep_table(taps: Sequence[Tap], block: Sequence[int], steps: int,
@@ -317,12 +359,13 @@ def _sweep_table(taps: Sequence[Tap], block: Sequence[int], steps: int,
 
 @functools.lru_cache(maxsize=256)
 def _device_table(kind: str, taps: tuple[Tap, ...], block: tuple[int, ...],
-                  order: int, steps: int, device: torch.device):
+                  order: int, steps: int, lead: int, device: torch.device):
     """A kernel's tap table on ``device`` and its run count, built and
-    copied once per (kernel, taps, tile, order, steps, device) — that is,
-    once per plan and device — and reused by every later launch."""
+    copied once per (kernel, taps, tile, order, steps, lead, device) —
+    that is, once per plan and device — and reused by every later
+    launch."""
     if kind == "step":
-        table, n_runs = _step_table(taps, block, order)
+        table, n_runs = _step_table(taps, block, order, lead)
     else:
         table, n_runs = _sweep_table(taps, block, steps, order)
     return torch.from_numpy(table).to(device), n_runs
@@ -336,9 +379,9 @@ def tap_table(plan, device) -> tuple[torch.Tensor, int]:
     device = torch.device(device)
     if isinstance(plan, SweepKernelPlan):
         return _device_table("sweep", plan.taps, plan.block,
-                             plan.spec.order, plan.steps, device)
+                             plan.spec.order, plan.steps, 0, device)
     return _device_table("step", plan.taps, plan.block, plan.spec.order, 1,
-                         device)
+                         step_lead(plan), device)
 
 
 def _check_cuda_operands(x: torch.Tensor, aux, batch: int) -> None:
@@ -404,12 +447,14 @@ def _launch_blocks(plan, out_shape) -> int:
 
 def step_launch_cost(plan: KernelPlan, x_shape: Sequence[int],
                      itemsize: int) -> LaunchCost:
-    """One :func:`stencil_cuda_call` on a haloed input of ``x_shape``:
-    every block reads its ``r``-haloed slab, its tile of each aux operand
-    and the tap table, and does one FMA per tap per tile output; the
-    output is written once."""
+    """One :func:`stencil_cuda_call` on an input of ``x_shape`` (haloed,
+    or the state itself in wrap mode): every block reads its ``r``-haloed
+    slab (wrapped or haloed alike), its tile of each aux operand and the
+    tap table, and does one FMA per tap per tile output; the output is
+    written once."""
     nd, r = plan.spec.ndim, plan.spec.order
-    out = [int(s) - 2 * r for s in x_shape[len(x_shape) - nd:]]
+    out = [int(s) - (0 if plan.wrap else 2 * r)
+           for s in x_shape[len(x_shape) - nd:]]
     blocks = _launch_blocks(plan, out)
     tile = int(np.prod(plan.block))
     slab = int(np.prod([b + 2 * r for b in plan.block]))
@@ -476,11 +521,14 @@ def _accumulate(xf: torch.Tensor, taps: Sequence[Tap], origin: Sequence[int],
 
 def stencil_step_plain(x: torch.Tensor, plan: KernelPlan,
                        aux: Sequence[torch.Tensor] = ()) -> torch.Tensor:
-    """The plain PyTorch version of :func:`stencil_cuda_call`: the same
-    taps in the same order over the whole haloed tensor, f32
+    """The plain PyTorch version of :func:`stencil_cuda_call`, on the same
+    input contract: in wrap mode it pads the periodic halo first.  Then
+    the same taps in the same order over the whole haloed tensor, f32
     accumulation, field then mask, cast to ``x.dtype``."""
-    out_shape = _check_input(x, plan, plan.spec.order)
+    out_shape = _step_shape(x, plan)
     _check_aux(aux, plan, out_shape, "output spatial shape")
+    if plan.wrap:
+        x = halo.pad_halo(x, plan.spec.order, plan.spec.ndim, "periodic")
     acc = _accumulate(x.to(torch.float32), plan.taps,
                       (0,) * plan.spec.ndim, out_shape)
     for a in aux:
@@ -491,12 +539,14 @@ def stencil_step_plain(x: torch.Tensor, plan: KernelPlan,
 @_priced("stencil_step", step_launch_cost)
 def stencil_cuda_call(x: torch.Tensor, plan: KernelPlan,
                       aux: Sequence[torch.Tensor] = ()) -> torch.Tensor:
-    """Run the matrixized stencil step over a haloed spatial tensor.
+    """Run the matrixized stencil step over a spatial tensor.
 
-    ``x``: ``([B,] S_0 + 2r, ..., S_{d-1} + 2r)`` haloed input with every
-    ``S_a`` a multiple of ``plan.block[a]`` (``kernels.ops`` pads);
-    returns ``([B,] S_0, ..., S_{d-1})`` in ``x.dtype``.  ``aux``:
-    ``plan.n_aux`` output-aligned f32 operands (field, then mask).
+    ``x``: with ``plan.wrap`` the unpadded periodic state ``([B,] S_0,
+    ...)``, any extents; else the haloed input ``([B,] S_0 + 2r, ...,
+    S_{d-1} + 2r)`` with every ``S_a`` a multiple of ``plan.block[a]``
+    (``kernels.ops`` pads).  Returns ``([B,] S_0, ..., S_{d-1})`` in
+    ``x.dtype``.  ``aux``: ``plan.n_aux`` output-aligned f32 operands
+    (field, then mask) of the output's spatial shape.
 
     A CPU tensor runs :func:`stencil_step_plain`; a CUDA tensor launches
     ``csrc/stencil_step.cu`` or raises.
@@ -504,12 +554,14 @@ def stencil_cuda_call(x: torch.Tensor, plan: KernelPlan,
     if x.device.type == "cpu":
         return stencil_step_plain(x, plan, aux)
     r = plan.spec.order
-    out_shape = _check_input(x, plan, r)
+    out_shape = _step_shape(x, plan)
     _check_aux(aux, plan, out_shape, "output spatial shape")
     batch = plan.batch or 1
     _check_cuda_operands(x, aux, batch)
     table, n_runs = tap_table(plan, x.device)
-    smem = mx.step_smem_bytes(plan.block, r, table_words=table.numel())
+    # wrap mode: one 16-byte unit more, for the last slab row's lead
+    smem = mx.step_smem_bytes(plan.block, r, table_words=table.numel()) \
+        + (16 if step_lead(plan) else 0)
     if smem > mx.SMEM_BYTES:
         raise ValueError(f"block {plan.block} at halo {r} needs {smem} B of "
                          f"shared memory (limit {mx.SMEM_BYTES})")
@@ -517,20 +569,25 @@ def stencil_cuda_call(x: torch.Tensor, plan: KernelPlan,
                       dtype=x.dtype, device=x.device)
     # whole-chunk vector loads and stores need 16-byte aligned rows of
     # STEP_V outputs; 16-byte slab copies need 16-byte aligned input rows
+    # (in wrap mode the kernel stores each slab row step_lead words in, so
+    # that its columns agree with the input's modulo 4)
     vec = int(out_shape[-1] % mx.STEP_V == 0
               and plan.block[-1] % mx.STEP_V == 0
               and all(t.data_ptr() % 16 == 0 for t in (out, *aux)))
     aligned = int(x.shape[-1] % 4 == 0 and plan.block[-1] % 4 == 0
                   and x.data_ptr() % 16 == 0)
-    fn = _launcher("stencil_step", "stencil_step_launch", 4)
+    fn = _launcher("stencil_step", "stencil_step_launch", 6)
     _launch(fn, "stencil_step", x, out, aux, table, len(plan.taps), batch,
             out_shape, plan.block, _as3((r,) * plan.spec.ndim, 0), n_runs,
-            mx.step_slab_pitch(plan.block, r), vec, aligned)
+            mx.step_slab_pitch(plan.block, r), vec, aligned, int(plan.wrap),
+            step_lead(plan))
     stencil_cuda_call.launches += 1
+    stencil_cuda_call.wrap_launches += plan.wrap
     return out
 
 
 stencil_cuda_call.launches = 0
+stencil_cuda_call.wrap_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -550,15 +607,9 @@ def sweep_aux_shape(out_shape: Sequence[int], plan: SweepKernelPlan
 def _sweep_shapes(x: torch.Tensor, plan: SweepKernelPlan, aux):
     """Validate a sweep's input and aux operands against the plan's input
     contract; returns the spatial output shape."""
-    nd, w = plan.spec.ndim, plan.steps * plan.spec.order
+    w = plan.steps * plan.spec.order
     if plan.wrap:
-        lead = 0 if plan.batch is None else 1
-        if x.ndim != nd + lead or (lead and x.shape[0] != plan.batch):
-            raise ValueError(f"wrap-mode sweep expects a ([{plan.batch}], "
-                             f"spatial...) state, got {tuple(x.shape)}")
-        out_shape = tuple(x.shape[lead:])
-        if any(s <= 0 for s in out_shape):
-            raise ValueError(f"empty state {tuple(x.shape)}")
+        out_shape = _check_state(x, plan, "sweep")
     else:
         out_shape = _check_input(x, plan, w)
     _check_aux(aux, plan, sweep_aux_shape(out_shape, plan),

@@ -3,7 +3,6 @@ the spans of one compiled call (``stencil.call``, ``engine.chunk``,
 ``halo.pad``, ``kernel.*``) against the closed form of its pads and
 launches and against ``launch/op_analysis``'s count, the sessions, and
 the benchmark's readers of them (``portbench/port_trace.py``)."""
-import math
 import sys
 import threading
 import time
@@ -52,15 +51,15 @@ def compiled(name, grid, pins):
 
 
 def closed_form(call, itemsize=4):
-    """(pad bytes, their gathers' index bytes, kernel bytes) of one call,
-    from the plan's shapes: a step-kernel chunk of order R gathers each
-    axis in turn (R each side), then zero-pads to whole tiles; an
-    in-kernel chunk pads nothing.  Each copy reads its input and writes
-    its output once; a launch moves what its geometry prices."""
+    """Kernel bytes of one call, from the plan's shapes: every chunk of a
+    periodic call hands its kernel the unpadded state (the step kernel
+    and the sweep kernel read the periodic halo through wrapped indices
+    and mask ragged tiles), so no chunk pads; a launch moves what its
+    geometry prices."""
     p, eng = call.plan, call.engine
     grid = p.grid
     block = tuple(min(b, g) for b, g in zip(p.block, grid))
-    pad = index = kern = 0
+    kern = 0
     for t in p.fuse_schedule:
         if p.fuse_strategy == "inkernel" and t > 1:
             kp = sm.build_sweep_kernel_plan(eng.plan.spec, eng.plan.cover,
@@ -68,21 +67,10 @@ def closed_form(call, itemsize=4):
             kern += sm.sweep_launch_cost(kp, grid, itemsize).bytes
             continue
         e = eng if t == 1 else eng.fused_engine(t)
-        r = e.plan.spec.order
-        shape = list(grid)
-        for a in range(len(grid)):
-            before = math.prod(shape)
-            shape[a] += 2 * r
-            pad += (before + math.prod(shape)) * itemsize
-            index += shape[a] * 8
-        extra = [(-(s - 2 * r)) % b for s, b in zip(shape, block)]
-        if any(extra):
-            before = math.prod(shape)
-            shape = [s + x for s, x in zip(shape, extra)]
-            pad += (before + math.prod(shape)) * itemsize
-        kp = sm.build_kernel_plan(e.plan.spec, e.plan.cover, block)
-        kern += sm.step_launch_cost(kp, shape, itemsize).bytes
-    return pad, index, kern
+        kp = sm.build_kernel_plan(e.plan.spec, e.plan.cover, block,
+                                  wrap=True)
+        kern += sm.step_launch_cost(kp, grid, itemsize).bytes
+    return kern
 
 
 def traced(fn, *args):
@@ -138,8 +126,9 @@ def test_with_the_profiler_off_no_span_is_entered(monkeypatch):
 @pytest.mark.parametrize("case", CASES)
 def test_one_call_records_its_layers(case):
     """One compiled call: one ``stencil.call``, an ``engine.chunk`` a
-    chunk of the schedule, the pads' bytes and the launches' bytes of the
-    closed form, each equal to ``analyze_ops``' count of the same call."""
+    chunk of the schedule, no pad (neither a span nor a copy that
+    ``analyze_ops`` counts) and the launches' bytes of the closed form,
+    equal to ``analyze_ops``' count of the same call."""
     name, grid, pins = CASES[case]
     call = compiled(name, grid, pins)
     if pins:
@@ -147,18 +136,14 @@ def test_one_call_records_its_layers(case):
         assert call.plan.fuse_schedule == full[name]
     x = torch.randn(grid, generator=torch.Generator().manual_seed(1))
     (_, cost), s = traced(analyze_ops, call, x)
-    pad, index, kern = closed_form(call)
+    kern = closed_form(call)
     assert s["stencil.call"]["count"] == 1
     chunk = s["engine.chunk"]
     assert chunk["count"] == len(call.plan.fuse_schedule)
     assert chunk["bytes"] == 0
-    got_pad = s.get("halo.pad", {"bytes": 0})["bytes"]
-    assert got_pad == pad
-    copies = (cost.ops.get("aten.index_select", 0)
-              + cost.ops.get("aten.constant_pad_nd", 0))
-    assert got_pad == copies - index
-    if pad:
-        assert s["halo.pad"]["device_s"] is None     # CPU: untimed
+    assert "halo.pad" not in s
+    assert cost.ops.get("aten.index_select", 0) == 0
+    assert cost.ops.get("aten.constant_pad_nd", 0) == 0
     kernels = {k: v for k, v in s.items() if k.startswith("kernel.")}
     assert sum(v["bytes"] for v in kernels.values()) == kern
     assert sum(v["bytes"] for v in kernels.values()) == cost.kernel_bytes
@@ -169,13 +154,15 @@ def test_one_call_records_its_layers(case):
 @pytest.mark.parametrize("case", ["star2d_r2 96x80 3x5+1",
                                   "star3d_r2 24x20x16 1x8"])
 def test_the_pinned_cases_gather_and_zero_pad(case):
-    """The full-size schedules' step chunks gather the periodic halos, and
-    at the small grids the full-size tiles make them zero-pad to whole
-    tiles too."""
+    """The full-size schedules' step chunks read the periodic halos in the
+    kernel, so they gather nothing; and though the full-size tiles do not
+    divide the small grids, the kernel masks the ragged tiles, so nothing
+    is zero-padded to whole tiles either."""
     name, grid, pins = CASES[case]
     _, cost = analyze_ops(compiled(name, grid, pins), torch.randn(grid))
-    assert cost.ops["aten.index_select"] > 0
-    assert cost.ops["aten.constant_pad_nd"] > 0
+    assert cost.ops.get("aten.index_select", 0) == 0
+    assert cost.ops.get("aten.constant_pad_nd", 0) == 0
+    assert cost.kernels["stencil_step"] >= 1
 
 
 def test_the_plain_sweeps_own_wrap_pad_is_not_counted():
@@ -350,10 +337,9 @@ def test_traced_cell_reports_the_closed_form(name):
                          device=torch.device("cpu"), t0=time.perf_counter())
     assert r["correct"] is True
     call = compiled(cell.config["name"], SMALL[name], {})
-    pad, _, kern = closed_form(call)
+    kern = closed_form(call)
     m = r["metrics"]
-    assert m["pad_gb_per_call"]["value"] == pytest.approx(pad / 1e9,
-                                                          rel=1e-12)
+    assert m["pad_gb_per_call"]["value"] == 0
     assert m["kernel_gb_per_call"]["value"] == pytest.approx(kern / 1e9,
                                                              rel=1e-12)
     assert "pad_bw_pct" not in m          # untimed off the card
