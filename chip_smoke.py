@@ -24,7 +24,9 @@ Phases:
    backends restricted to ``["cuda"]`` — on four full-size cells and check
    each against the port's gather oracle (``reference_evolve``) on the card
    at max|diff| <= 1e-4; the launch counters are zeroed just before and
-   read just after, and both kernels must have launched;
+   read just after, both kernels must have launched, and every step
+   launch of a 3-D cell walks axis 0 (``stencil_cuda_call.walk_launches``)
+   and none of a 2-D one;
 5. hold every distinct kernel configuration the main path launched
    (kernel, spec, cover, tile, T, aux operands, input mode — read from
    each cell's compiled engine) against its plain version at the path's
@@ -39,7 +41,11 @@ Phases:
    in turns; then (6b) the step kernel in wrap mode against the padded
    path it replaced (periodic pad, tile pad, valid-mode kernel, crop),
    bit for bit, at the box2d_r1 and star3d_r2 cells' step chunks and at
-   a ragged 3-D grid, both timed with CUDA events in turns;
+   a ragged 3-D grid, both timed with CUDA events in turns, and its
+   axis-0 walk against the slab path (one tile a block), bit for bit, on
+   3-D chunks of both input modes, f32 and bf16, constant and
+   varying+masked, ragged, box and fused, with the launch timed for the
+   slab and every walk depth at 1024^3 and 512^3;
 7. time each cell's warm run on the host clock and break one profiled
    run's device time into the two kernels and everything else, with the
    pads counted twice, by the port's ``halo.pad`` spans (count, bytes,
@@ -652,6 +658,7 @@ def run_cells(device, failures: list, cells=CELLS) -> dict:
             f"schedule={p.schedule_str()} ({t_plan:.2f}s to plan+compile)")
         x = seeded_normal(cell["grid"], 1000 + i, device)
         before = [c.launches for c in counters]
+        walks = sm.stencil_cuda_call.walk_launches
         if device.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -660,6 +667,9 @@ def run_cells(device, failures: list, cells=CELLS) -> dict:
             torch.cuda.synchronize()
         t_run = time.perf_counter() - t0
         launched = [c.launches - b for c, b in zip(counters, before)]
+        walks = sm.stencil_cuda_call.walk_launches - walks
+        # every 3-D step launch walks axis 0; a 2-D one never does
+        want_walks = launched[0] if spec.ndim == 3 else 0
         want = reference_evolve(spec, x, cell["steps"], "periodic")
         err = (y - want).abs().max().item()
         finite = bool(torch.isfinite(y).all())
@@ -668,9 +678,14 @@ def run_cells(device, failures: list, cells=CELLS) -> dict:
         log(f"  {cell['label']}: max|port-oracle| {err:.3e} (tol "
             f"{E2E_ATOL:g}), finite={finite}, shape={tuple(y.shape)}, "
             f"run {t_run * 1e3:.1f} ms incl. first-launch setup, launches "
-            f"step={launched[0]} sweep={launched[1]}{'' if ok else '  FAIL'}")
+            f"step={launched[0]} sweep={launched[1]}, walking "
+            f"{walks}{'' if ok and walks == want_walks else '  FAIL'}")
         if not ok:
             failures.append(f"main path: {cell['label']}: {err:.3e}")
+        if walks != want_walks:
+            failures.append(f"main path: {cell['label']}: {walks} walking "
+                            f"step launches of {launched[0]} (want "
+                            f"{want_walks})")
         del x, y, want
     counts = {"stencil_step": sm.stencil_cuda_call.launches,
               "stencil_sweep": sm.sweep_cuda_call.launches}
@@ -987,6 +1002,94 @@ def step_wrap_vs_padded(device, main: dict, failures: list) -> None:
             failures.append(f"step wrap mode vs the padded path: {label}: "
                             f"bit-equal={equal}, {wraps} wrap launches")
         del xp, tiled, aux, x, runs
+
+
+def step_walk_vs_slab(device, main: dict, failures: list) -> None:
+    """The step kernel's axis-0 walk, as :func:`stencil_cuda_call` picks
+    it, against the slab path (one tile a block, ``step_kernel(..., 0)``):
+    equal bit for bit, and one walking launch a call, at the star3d_r2
+    cell's chunk on 1024^3 and 512^3, on :data:`STEP_WRAP_RAGGED`
+    (constant and varying+masked), in bf16, in valid mode on a haloed
+    input, and for box3d_r1 and a fused depth-2 operator.  Then the
+    launch's time for the slab and for every walk of
+    ``matrixization.STEP_WALKS`` at 1024^3 and 512^3, in turns (CUDA
+    events), beside the walk the rule picks."""
+    import numpy as np
+    import torch
+    from repro_torch.core import coefficient_lines as cl
+    from repro_torch.core import halo
+    from repro_torch.core import matrixization as mx
+    from repro_torch.core import stencil_spec as ss
+    from repro_torch.core import temporal
+    from repro_torch.kernels import stencil_mxu as sm
+
+    case = [c for c in path_launches(CELLS[2],
+                                     main["runs"][CELLS[2]["label"]], device)
+            if c["name"] == "stencil_step"][-1]
+    base, cover, block = case["spec"], case["cover"], case["block"]
+    del case
+    sms = sm.sm_count(device)
+    box = ss.PAPER_SUITE()["box3d_r1"]
+    fused = temporal.fuse_steps(base, 2)
+    cases = []
+    for n in (1024, 512):
+        cases.append((f"{base.describe()} {n}^3", base, cover, block,
+                      (n,) * 3, "float32", True))
+    for scenario in ("constant", "varying+masked"):
+        spec = base if scenario == "constant" else base.with_field(
+            np.ones(STEP_WRAP_RAGGED),
+            domain_mask=np.ones(STEP_WRAP_RAGGED, bool))
+        cases.append((f"{spec.describe()} {scenario} {STEP_WRAP_RAGGED}",
+                      spec, cover, block, STEP_WRAP_RAGGED, "float32", True))
+    cases += [
+        (f"{base.describe()} 512^3 bf16", base, cover, block, (512,) * 3,
+         "bfloat16", True),
+        (f"{base.describe()} 256^3 valid mode (haloed input)", base, cover,
+         block, (256,) * 3, "float32", False),
+        (f"{box.describe()} 256^3", box, cl.make_cover(box, "parallel"),
+         KERNEL_CASES[3][2], (256,) * 3, "float32", True),
+        (f"{fused.describe()} (depth 2) 64^3", fused,
+         cl.make_cover(fused, "parallel"), (8, 16, 32), (64,) * 3,
+         "float32", True)]
+    for i, (label, spec, cov, blk, grid, dtype, wrap) in enumerate(cases):
+        r = spec.order
+        x = seeded_normal(grid, 3100 + i, device).to(getattr(torch, dtype))
+        if not wrap:
+            x = halo.pad_halo(x, r, 3, "periodic")
+        aux = () if spec.is_constant_dense else seeded_aux(grid, 3200 + i,
+                                                           device)
+        plan = sm.build_kernel_plan(spec, cov, blk, wrap=wrap)
+        walk = sm.step_walk_of(plan, grid, sms)
+        walks = sm.stencil_cuda_call.walk_launches
+        got = sm.stencil_cuda_call(x, plan, aux)
+        walks = sm.stencil_cuda_call.walk_launches - walks
+        want = sm.step_kernel(x, plan, aux, 0)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        ok = equal and walk >= 1 and walks == 1
+        log(f"  walk vs slab, {label}, block {blk}: walk {walk} tiles, "
+            f"bit-equal={equal}, walking launches {walks}"
+            f"{'' if ok else '  FAIL'}")
+        if not ok:
+            failures.append(f"step walk vs slab: {label}: bit-equal={equal},"
+                            f" walk {walk}, {walks} walking launches")
+        del x, aux, got, want
+    plan = sm.build_kernel_plan(base, cover, block, wrap=True)
+    for n in (1024, 512):
+        x = seeded_normal((n,) * 3, 3300 + n, device)
+        walks = (0,) + mx.STEP_WALKS
+        times = {k: [] for k in walks}
+        for k in walks + walks[::-1]:
+            times[k].append(cuda_ms(
+                lambda k=k: sm.step_kernel(x, plan, (), k), reps=10))
+        pick = sm.step_walk_of(plan, (n,) * 3, sms)
+        table = "; ".join(
+            f"{'slab' if k == 0 else f'k={k}'} {t[0]:.3f}, {t[1]:.3f}"
+            + (" (the rule's)" if k == pick else "")
+            for k, t in times.items())
+        log(f"  {base.describe()} {n}^3 block {block}, ms a launch in turns"
+            f" ({sms} SMs): {table}")
+        del x
 
 
 def _time_row(name, source, replaces, launches, failures, *, kernel, plain,
@@ -4180,8 +4283,10 @@ def main() -> int:
     rows = time_kernels(device, main_run, failures)
     compare_sweep_tiles(device, main_run, failures)
     log("phase 6b: the step kernel in wrap mode against the padded path, "
-        "bit for bit (CUDA events)")
+        "and its axis-0 walk against the slab path, bit for bit (CUDA "
+        "events)")
     step_wrap_vs_padded(device, main_run, failures)
+    step_walk_vs_slab(device, main_run, failures)
 
     log("phase 7: whole cells, warm (host clock; device time by profiler)")
     cell_breakdown(device, main_run, failures)

@@ -54,6 +54,9 @@ __all__ = [
     "block_hbm_bytes",
     "step_slab_pitch",
     "step_smem_bytes",
+    "step_walk_planes",
+    "step_ring_smem_bytes",
+    "step_walk",
     "sweep_slab_pitch",
     "sweep_items",
     "sweep_smem_bytes",
@@ -67,6 +70,11 @@ __all__ = [
     "STEP_THREADS",
     "STEP_V",
     "STEP_MAX_RUN",
+    "STEP_ROWS",
+    "STEP_WALKS",
+    "H100_SMS",
+    "STEP_WALK_REREAD",
+    "STEP_WALK_BLOCKS",
     "SCRATCH_MODES",
     "check_scratch",
 ]
@@ -103,6 +111,15 @@ SMEM_BYTES = 232448
 STEP_THREADS = 256
 STEP_V = 8
 STEP_MAX_RUN = 9
+#: Tile rows one pass of a step-kernel block covers: a warp is 32 / STEP_V
+#: threads along a row times STEP_V rows (the kernel's kTy).
+STEP_ROWS = STEP_THREADS // (32 // STEP_V)
+#: Tiles a 3-D step launch may walk along axis 0 (:func:`step_walk`).
+STEP_WALKS = (1, 2, 4, 8, 16)
+#: Streaming multiprocessors of the card the port is built for (H100 SXM):
+#: :func:`step_walk` reads the card's own count, and this one where no card
+#: is at hand (pricing a launch on the CPU).
+H100_SMS = 132
 
 # The sweep kernel (kernels/csrc/stencil_sweep.cu, which defines the same
 # numbers) runs SWEEP_THREADS threads a block and computes STEP_V outputs a
@@ -115,6 +132,12 @@ SWEEP_THREADS = 256
 SWEEP_ITEM_ROWS = 8
 SWEEP_ITEM_CHUNKS = 4
 SINGLE_SLOTS = 6
+
+#: :func:`step_walk`: a walk re-reads at most 1/STEP_WALK_REREAD of its
+#: planes, and a walking launch keeps STEP_WALK_BLOCKS blocks for each
+#: multiprocessor (about four waves of the four blocks an SM holds).
+STEP_WALK_REREAD = 16
+STEP_WALK_BLOCKS = 16
 
 #: Shared memory a plan lets one block claim: an SM holds 228 KB, of which
 #: each resident block reserves 1 KB, so two blocks of this size share an
@@ -148,6 +171,64 @@ def step_smem_bytes(block: tuple[int, ...], halo_width: int,
     if table_words is None:
         table_words = 5 * (2 * halo_width + 1) ** len(block)
     return 4 * (slab + table_words)
+
+
+def step_walk_planes(block: tuple[int, ...], halo_width: int
+                     ) -> tuple[int, int, int]:
+    """``(q, ahead, ring)`` of the step kernel's axis-0 walk over a 3-D
+    tile: a step computes ``q`` output planes, enough rows that every
+    thread row of the block has one (``q * b1 >= STEP_ROWS``) but at most
+    half the tile's planes, while ``ahead`` groups of ``q`` planes load
+    (two where the ring then holds no more planes than the tile's slab,
+    ``3q <= b0``, else one), and the ring holds the ``2*halo_width + q``
+    planes a step reads and those loading.  ``q = 0`` (a tile one plane
+    deep) does not walk."""
+    q = min(-(-STEP_ROWS // block[1]), block[0] // 2)
+    ahead = 2 if block[0] >= 3 * q else 1
+    return q, ahead, 2 * halo_width + (1 + ahead) * q
+
+
+def step_ring_smem_bytes(block: tuple[int, ...], halo_width: int,
+                         table_words: int | None = None) -> int:
+    """Shared memory of one walking step-kernel block: the ring of
+    :func:`step_walk_planes` slab planes at :func:`step_slab_pitch`,
+    rounded up to 16 bytes, and the tap table as in
+    :func:`step_smem_bytes`."""
+    ring = step_walk_planes(block, halo_width)[2]
+    rows = ring * (block[1] + 2 * halo_width)
+    slab = -(-rows * step_slab_pitch(block, halo_width) // 4) * 4
+    if table_words is None:
+        table_words = 5 * (2 * halo_width + 1) ** len(block)
+    return 4 * (slab + table_words)
+
+
+def step_walk(out_shape: tuple[int, ...], block: tuple[int, ...],
+              halo_width: int, batch: int, sms: int) -> int:
+    """Tiles each block of a step launch walks along axis 0 (0: one tile a
+    block, the slab path).
+
+    Only a 3-D launch with a halo on axis 0 walks (a 2-D one is 3-D with a
+    leading extent of 1 and no halo there), and only a tile at least two
+    planes deep (:func:`step_walk_planes`); a walk of one tile reads what
+    one tile a block does, and was measured faster (PERF.md §6).
+    The walk is the shallowest of :data:`STEP_WALKS` whose ``2*halo_width``
+    re-read planes are at most ``1/STEP_WALK_REREAD`` of its ``k*b0``
+    output planes (deeper walks save little more), no deeper than the
+    tiles along axis 0, and halved while the launch would have fewer than
+    ``STEP_WALK_BLOCKS`` blocks for each of the card's ``sms``
+    multiprocessors (its ``multi_processor_count``): fewer, longer blocks
+    leave more of the card idle in the launch's last wave."""
+    if len(block) < 3 or halo_width == 0 \
+            or step_walk_planes(block, halo_width)[0] < 1:
+        return 0
+    tiles = [-(-int(o) // int(b)) for o, b in zip(out_shape, block)]
+    walk = next((k for k in STEP_WALKS
+                 if 2 * halo_width * STEP_WALK_REREAD <= k * block[0]),
+                STEP_WALKS[-1])
+    while walk > 1 and (walk > tiles[0] or batch * tiles[1] * tiles[2]
+                        * -(-tiles[0] // walk) < STEP_WALK_BLOCKS * sms):
+        walk //= 2
+    return walk
 
 
 def sweep_slab_pitch(block: tuple[int, ...], steps: int, order: int) -> int:

@@ -28,11 +28,16 @@ the last axis held in registers (:func:`tap_runs`).  Each plan's tap
 table is built on a device once (:func:`tap_table`) and reused by every
 launch.
 
+A 3-D step launch walks axis 0 instead (:func:`step_kernel`): one block
+streams a column of tiles through a ring of slab planes, so the axis-0
+halo is read once a walk, not once a tile.
+
 Routing: a wrapper given a CPU tensor runs its plain version (whole-tensor
 shifted adds, the same taps in the same order); given a CUDA tensor it
 launches its kernel or raises — there is no fallback.  Each wrapper counts
-its launches in ``<wrapper>.launches``, and its wrap-mode launches also in
-``<wrapper>.wrap_launches``.
+its launches in ``<wrapper>.launches``, its wrap-mode launches also in
+``<wrapper>.wrap_launches``, and the step kernel's walking launches in
+``stencil_cuda_call.walk_launches``.
 """
 from __future__ import annotations
 
@@ -56,8 +61,8 @@ __all__ = ["KernelPlan", "build_kernel_plan", "stencil_cuda_call",
            "stencil_step_plain", "SweepKernelPlan",
            "build_sweep_kernel_plan", "sweep_cuda_call", "sweep_plain",
            "sweep_aux_shape", "step_launch_cost", "sweep_launch_cost",
-           "step_lead", "tap_runs", "tap_table", "SCRATCH_MODES",
-           "MAX_BATCH"]
+           "step_lead", "step_kernel", "step_walk_of", "sm_count", "tap_runs",
+           "tap_table", "SCRATCH_MODES", "MAX_BATCH"]
 
 #: The batch rides the kernels' second grid dimension (at most 65535).
 MAX_BATCH = 65535
@@ -446,24 +451,39 @@ def _launch_blocks(plan, out_shape) -> int:
 
 
 def step_launch_cost(plan: KernelPlan, x_shape: Sequence[int],
-                     itemsize: int) -> LaunchCost:
+                     itemsize: int, sms: int = mx.H100_SMS) -> LaunchCost:
     """One :func:`stencil_cuda_call` on an input of ``x_shape`` (haloed,
-    or the state itself in wrap mode): every block reads its ``r``-haloed
-    slab (wrapped or haloed alike), its tile of each aux operand and the
-    tap table, and does one FMA per tap per tile output; the output is
-    written once."""
+    or the state itself in wrap mode) on a card of ``sms``
+    multiprocessors.  One tile a block: every block reads its
+    ``r``-haloed slab (wrapped or haloed alike), its tile of each aux
+    operand and the tap table, and does one FMA per tap per tile output.
+    Walking ``k`` tiles a block (:func:`step_walk_of`): every block reads
+    the ``len + 2r`` slab planes of its walk's ``len`` planes of whole
+    tiles (``k*b0``, fewer at the state's end), and otherwise as one tile
+    a block.  The output is written once."""
     nd, r = plan.spec.ndim, plan.spec.order
     out = [int(s) - (0 if plan.wrap else 2 * r)
            for s in x_shape[len(x_shape) - nd:]]
     blocks = _launch_blocks(plan, out)
     tile = int(np.prod(plan.block))
     slab = int(np.prod([b + 2 * r for b in plan.block]))
-    per_block = (slab * itemsize + plan.n_aux * tile * 4
-                 + _table_words(plan) * 4)
-    return LaunchCost(
-        fmas=len(plan.taps) * tile * blocks,
-        bytes=blocks * per_block + (plan.batch or 1) * int(np.prod(out))
-        * itemsize)
+    table = _table_words(plan) * 4
+    written = (plan.batch or 1) * int(np.prod(out)) * itemsize
+    walk = step_walk_of(plan, out, sms)
+    if walk:
+        b0 = plan.block[0]
+        tiles0 = -(-out[0] // b0)
+        reads = sum(min(walk, tiles0 - t0) * b0 + 2 * r
+                    for t0 in range(0, tiles0, walk))
+        columns = blocks // tiles0
+        return LaunchCost(
+            fmas=len(plan.taps) * tile * blocks,
+            bytes=columns * (reads * slab // (b0 + 2 * r) * itemsize
+                             + -(-tiles0 // walk) * table)
+            + blocks * plan.n_aux * tile * 4 + written)
+    per_block = slab * itemsize + plan.n_aux * tile * 4 + table
+    return LaunchCost(fmas=len(plan.taps) * tile * blocks,
+                      bytes=blocks * per_block + written)
 
 
 def sweep_launch_cost(plan: SweepKernelPlan, x_shape: Sequence[int],
@@ -488,17 +508,41 @@ def sweep_launch_cost(plan: SweepKernelPlan, x_shape: Sequence[int],
 
 
 def _priced(name: str, cost):
-    """Report a wrapper's :class:`LaunchCost` to the thread's recorders
-    around every call, kernel or plain version."""
+    """Report a wrapper's :class:`LaunchCost` (``cost(plan, x)``) to the
+    thread's recorders around every call, kernel or plain version."""
     def wrap(fn):
         @functools.wraps(fn)
         def call(x, plan, aux=()):
-            with launch_cost.kernel_region(
-                    name, lambda: cost(plan, tuple(x.shape),
-                                       x.element_size())):
+            with launch_cost.kernel_region(name, lambda: cost(plan, x)):
                 return fn(x, plan, aux)
         return call
     return wrap
+
+
+@functools.lru_cache(maxsize=None)
+def _cuda_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Multiprocessors of ``device``'s card; :data:`mx.H100_SMS` for a
+    device that is not a card (the plain versions price the card's
+    launch)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return mx.H100_SMS
+    return _cuda_sms(torch.cuda.current_device() if device.index is None
+                     else device.index)
+
+
+def step_walk_of(plan: KernelPlan, out_shape: Sequence[int],
+                 sms: int) -> int:
+    """The walk :func:`stencil_cuda_call` launches ``plan`` with on an
+    output of spatial ``out_shape`` and a card of ``sms`` multiprocessors
+    (:func:`mx.step_walk`; 0: one tile a block)."""
+    return mx.step_walk(_as3(out_shape, 1), _as3(plan.block, 1),
+                        plan.spec.order if plan.spec.ndim == 3 else 0,
+                        plan.batch or 1, sms)
 
 
 # ---------------------------------------------------------------------------
@@ -536,7 +580,8 @@ def stencil_step_plain(x: torch.Tensor, plan: KernelPlan,
     return acc.to(x.dtype)
 
 
-@_priced("stencil_step", step_launch_cost)
+@_priced("stencil_step", lambda plan, x: step_launch_cost(
+    plan, tuple(x.shape), x.element_size(), sm_count(x.device)))
 def stencil_cuda_call(x: torch.Tensor, plan: KernelPlan,
                       aux: Sequence[torch.Tensor] = ()) -> torch.Tensor:
     """Run the matrixized stencil step over a spatial tensor.
@@ -549,10 +594,26 @@ def stencil_cuda_call(x: torch.Tensor, plan: KernelPlan,
     (field, then mask) of the output's spatial shape.
 
     A CPU tensor runs :func:`stencil_step_plain`; a CUDA tensor launches
-    ``csrc/stencil_step.cu`` or raises.
+    ``csrc/stencil_step.cu`` or raises, walking axis 0 where
+    :func:`step_walk_of` says so (the outputs are the same bits either
+    way).
     """
     if x.device.type == "cpu":
         return stencil_step_plain(x, plan, aux)
+    walk = step_walk_of(plan, _step_shape(x, plan), sm_count(x.device))
+    out = step_kernel(x, plan, aux, walk)
+    stencil_cuda_call.launches += 1
+    stencil_cuda_call.wrap_launches += plan.wrap
+    stencil_cuda_call.walk_launches += walk > 0
+    return out
+
+
+def step_kernel(x: torch.Tensor, plan: KernelPlan,
+                aux: Sequence[torch.Tensor], walk: int) -> torch.Tensor:
+    """One launch of ``csrc/stencil_step.cu`` on a CUDA tensor, each block
+    walking ``walk`` tiles along axis 0 (0: one tile a block, the slab
+    path), uncounted and unpriced: :func:`stencil_cuda_call` picks the
+    walk; the card's checks hold one walk against another here."""
     r = plan.spec.order
     out_shape = _step_shape(x, plan)
     _check_aux(aux, plan, out_shape, "output spatial shape")
@@ -560,7 +621,8 @@ def stencil_cuda_call(x: torch.Tensor, plan: KernelPlan,
     _check_cuda_operands(x, aux, batch)
     table, n_runs = tap_table(plan, x.device)
     # wrap mode: one 16-byte unit more, for the last slab row's lead
-    smem = mx.step_smem_bytes(plan.block, r, table_words=table.numel()) \
+    smem = (mx.step_ring_smem_bytes if walk else mx.step_smem_bytes)(
+        plan.block, r, table_words=table.numel()) \
         + (16 if step_lead(plan) else 0)
     if smem > mx.SMEM_BYTES:
         raise ValueError(f"block {plan.block} at halo {r} needs {smem} B of "
@@ -576,18 +638,17 @@ def stencil_cuda_call(x: torch.Tensor, plan: KernelPlan,
               and all(t.data_ptr() % 16 == 0 for t in (out, *aux)))
     aligned = int(x.shape[-1] % 4 == 0 and plan.block[-1] % 4 == 0
                   and x.data_ptr() % 16 == 0)
-    fn = _launcher("stencil_step", "stencil_step_launch", 6)
+    fn = _launcher("stencil_step", "stencil_step_launch", 7)
     _launch(fn, "stencil_step", x, out, aux, table, len(plan.taps), batch,
             out_shape, plan.block, _as3((r,) * plan.spec.ndim, 0), n_runs,
             mx.step_slab_pitch(plan.block, r), vec, aligned, int(plan.wrap),
-            step_lead(plan))
-    stencil_cuda_call.launches += 1
-    stencil_cuda_call.wrap_launches += plan.wrap
+            step_lead(plan), int(walk))
     return out
 
 
 stencil_cuda_call.launches = 0
 stencil_cuda_call.wrap_launches = 0
+stencil_cuda_call.walk_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -639,7 +700,8 @@ def sweep_plain(x: torch.Tensor, plan: SweepKernelPlan,
     return cur.to(x.dtype)
 
 
-@_priced("stencil_sweep", sweep_launch_cost)
+@_priced("stencil_sweep", lambda plan, x: sweep_launch_cost(
+    plan, tuple(x.shape), x.element_size()))
 def sweep_cuda_call(x: torch.Tensor, plan: SweepKernelPlan,
                     aux: Sequence[torch.Tensor] = ()) -> torch.Tensor:
     """Advance a spatial tensor by ``plan.steps`` base steps in one kernel.
