@@ -29,13 +29,6 @@ the already-exchanged deep halo, each step clamped through a
 global-position mask (the mask is all ones away from the global edge, so
 every slot runs the same code).
 
-``overlap=True`` overlaps the exchange with compute on the card: every
-slot's buffer fill and strip copies are issued first, on one copy stream
-per slot, and each slot's chunk launch on the compute stream waits only
-on the event of its own strips — slot *k*'s kernel runs while slot
-*k+1*'s strips move.  The work is the same as ``overlap=False`` (no
-second interior launch), so the two are bit-identical.
-
 :data:`exchange_counts` is the exchange census, the counterpart of the
 reference's ``ppermute`` count in a jaxpr: per fused chunk and named
 mesh axis one ``exchange`` of two ``permutes`` (forward and backward),
@@ -254,10 +247,6 @@ class _Halo:
         self.max_width = max_width
         self._flat: dict[tuple, Tensor] = {}
         self._key = None
-        self._copy_streams: dict[tuple, torch.cuda.Stream] = {}
-        #: per coordinate, the event its chunk launch waits on (the
-        #: streamed exchange's last phase)
-        self.ready: dict[tuple, torch.cuda.Event] = {}
 
     def buffers(self, blocks: np.ndarray, w: int) -> dict[tuple, Tensor]:
         b0 = blocks.flat[0]
@@ -279,18 +268,8 @@ class _Halo:
                 flat = self._flat[c] = torch.empty(
                     int(np.prod(full)), dtype=b0.dtype,
                     device=blocks[c].device)
-                if flat.device.type == "cuda":
-                    # written on the slot's copy stream: freeing it (a new
-                    # block shape) must wait for that stream's work too
-                    flat.record_stream(self.copy_stream(c, flat.device))
             out[c] = flat[:numel].view(shape)
         return out
-
-    def copy_stream(self, c, device) -> torch.cuda.Stream:
-        s = self._copy_streams.get(c)
-        if s is None:
-            s = self._copy_streams[c] = torch.cuda.Stream(device=device)
-        return s
 
 
 def _fill_centre(h: Tensor, block: Tensor, w: int, spec_ndim: int,
@@ -328,7 +307,7 @@ def _fill_centre(h: Tensor, block: Tensor, w: int, spec_ndim: int,
 def _exchange_axis(bufs: dict[tuple, Tensor], mesh: DeviceMesh, axis: int,
                    mesh_axis: str, w: int, done_axes: Sequence[int],
                    sharded: Sequence[int], periodic: bool,
-                   interior: Sequence[int], coords=None) -> None:
+                   interior: Sequence[int]) -> None:
     """Fill every buffer's two ``w``-deep frames of array axis ``axis``
     from its mesh neighbours along ``mesh_axis``: the low frame from the
     previous coordinate's high strip and the high frame from the next
@@ -345,7 +324,7 @@ def _exchange_axis(bufs: dict[tuple, Tensor], mesh: DeviceMesh, axis: int,
         if a != axis and a not in done_axes:
             rng[a] = slice(w, w + interior[a])
     n = interior[axis]
-    for c in (coords if coords is not None else bufs):
+    for c in bufs:
         h = bufs[c]
         lo, hi = list(rng), list(rng)
         lo[axis], hi[axis] = slice(0, w), slice(n + w, n + 2 * w)
@@ -486,7 +465,6 @@ def _check_depth(block_shape: Sequence[int], w: int, spec_ndim: int) -> None:
 def distributed_fused_chunk(state: ShardedState, *, t: int,
                             base_core: Callable, fused_core: Callable,
                             spec: StencilSpec, periodic: bool = True,
-                            overlap: bool = True,
                             halo: "_Halo | None" = None) -> ShardedState:
     """Advance every block by ``t`` steps with ONE ``t*r`` halo exchange.
 
@@ -507,15 +485,9 @@ def distributed_fused_chunk(state: ShardedState, *, t: int,
     mesh_axes = {i + lead: ax for i, ax in enumerate(state.grid_axes) if ax}
     if halo is None:
         halo = _Halo(state.mesh, mesh_axes, spec.ndim, periodic, w)
-    streamed = overlap and b0.device.type == "cuda"
-    if streamed:
-        bufs = _haloed_input_streamed(blocks, w, halo)
-    else:
-        bufs = _haloed_input(blocks, w, halo)
+    bufs = _haloed_input(blocks, w, halo)
     out = np.empty(blocks.shape, dtype=object)
     for c, h in bufs.items():
-        if streamed:
-            torch.cuda.current_stream(h.device).wait_event(halo.ready[c])
         y = fused_core(h)
         if not periodic and t > 1:
             y = _zero_boundary_strips(
@@ -527,60 +499,8 @@ def distributed_fused_chunk(state: ShardedState, *, t: int,
     return dataclasses.replace(state, blocks=out)
 
 
-def _haloed_input_streamed(blocks: np.ndarray, w: int, halo: _Halo
-                           ) -> dict[tuple, Tensor]:
-    """:func:`_haloed_input` on one copy stream per slot: each slot's
-    fill waits for the compute stream's previous work, each axis's strips
-    wait for the neighbours' previous phase, and ``halo.ready[c]`` is the
-    event the slot's chunk launch waits on."""
-    bufs = halo.buffers(blocks, w)
-    b0 = blocks.flat[0]
-    coords = list(bufs)
-    start = {}
-    for c in coords:
-        dev = blocks[c].device
-        if dev not in start:
-            start[dev] = torch.cuda.current_stream(dev).record_event()
-    phase = {}
-    with trace.span("dist.halo_fill"):
-        for c in coords:
-            s = halo.copy_stream(c, blocks[c].device)
-            s.wait_event(start[blocks[c].device])
-            with torch.cuda.stream(s):
-                blocks[c].record_stream(s)
-                _fill_centre(bufs[c], blocks[c], w, halo.spec_ndim,
-                             halo.mesh_axes, halo.periodic)
-                phase[c] = s.record_event()
-    interior = dict(enumerate(b0.shape))
-    done: list[int] = []
-    mesh = halo.mesh
-    with trace.span("dist.exchange"):
-        for axis, mesh_axis in halo.mesh_axes.items():
-            j = _mesh_axis_index(mesh, mesh_axis)
-            n_dev = mesh.shape[j]
-            nxt_phase = {}
-            for c in coords:
-                s = halo.copy_stream(c, blocks[c].device)
-                for dk in (-1, 1):
-                    nb = list(c)
-                    nb[j] = (c[j] + dk) % n_dev
-                    s.wait_event(phase[tuple(nb)])
-                with torch.cuda.stream(s):
-                    _exchange_axis(bufs, mesh, axis, mesh_axis, w, done,
-                                   list(halo.mesh_axes), halo.periodic,
-                                   interior, coords=[c])
-                    nxt_phase[c] = s.record_event()
-            phase = nxt_phase
-            exchange_counts["exchanges"] += 1
-            exchange_counts["permutes"] += 2
-            done.append(axis)
-    halo.ready = phase
-    return bufs
-
-
 def distributed_stencil_step(state: ShardedState, *, engine: StencilEngine,
-                             periodic: bool = True,
-                             overlap: bool = True) -> ShardedState:
+                             periodic: bool = True) -> ShardedState:
     """One sharded stencil step: the single-step case of
     :func:`distributed_fused_chunk`; spatial axes no mesh axis splits get
     their boundary applied locally."""
@@ -589,7 +509,7 @@ def distributed_stencil_step(state: ShardedState, *, engine: StencilEngine,
     core = engine._core
     return distributed_fused_chunk(state, t=1, base_core=core,
                                    fused_core=core, spec=engine.plan.spec,
-                                   periodic=periodic, overlap=overlap)
+                                   periodic=periodic)
 
 
 # ---------------------------------------------------------------------------
@@ -705,8 +625,7 @@ def make_fused_distributed_stepper(spec: StencilSpec, mesh: DeviceMesh,
                                    boundary: str = "periodic",
                                    block: tuple[int, ...] | None = None,
                                    fuse_strategy: str = "operator",
-                                   batch: int | None = None,
-                                   overlap: bool = True
+                                   batch: int | None = None
                                    ) -> DistributedStepper:
     """Build the fused multi-slot sweep: one ``t*r`` exchange per chunk.
 
@@ -771,8 +690,7 @@ def make_fused_distributed_stepper(spec: StencilSpec, mesh: DeviceMesh,
     def chunk(state: ShardedState, t: int) -> ShardedState:
         return distributed_fused_chunk(state, t=t, base_core=cores[1],
                                        fused_core=cores[t], spec=spec,
-                                       periodic=periodic, overlap=overlap,
-                                       halo=halo)
+                                       periodic=periodic, halo=halo)
 
     return DistributedStepper(chunk, schedule, mesh, grid_axes,
                               radius=spec.order, batch=batch)
@@ -781,7 +699,7 @@ def make_fused_distributed_stepper(spec: StencilSpec, mesh: DeviceMesh,
 def make_distributed_stepper(spec: StencilSpec, mesh: DeviceMesh,
                              grid_axes: Sequence[str],
                              option: str = "auto", backend: str = "cuda",
-                             periodic: bool = True, overlap: bool = True,
+                             periodic: bool = True,
                              steps: int = 1) -> DistributedStepper:
     """A multi-slot stepper with a width-r exchange per step.
 
@@ -792,5 +710,4 @@ def make_distributed_stepper(spec: StencilSpec, mesh: DeviceMesh,
     """
     return make_fused_distributed_stepper(
         spec, mesh, grid_axes, schedule=(1,) * int(steps), option=option,
-        backend=backend, boundary="periodic" if periodic else "zero",
-        overlap=overlap)
+        backend=backend, boundary="periodic" if periodic else "zero")

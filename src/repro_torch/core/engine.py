@@ -154,10 +154,11 @@ class Backend:
     #                           a block's shared memory, so the planner and
     #                           the fuse-depth chooser (its smem_gate) drop
     #                           fused operators whose tile does not fit
-    wraps: bool = False       # True: builder(plan, boundary="periodic")
-    #                           returns a shape-preserving core that reads
-    #                           the periodic halo itself, so the engine
-    #                           does not pad the state for it
+    wraps: bool = False       # True: builder and sweep_builder take
+    #                           boundary="periodic" and then return a
+    #                           shape-preserving core that reads the
+    #                           periodic halo itself, so the engine does
+    #                           not pad the state for it
 
     def effective_efficiency(self, compute_factors=None) -> float:
         """The backend's calibratable efficiency model: ``efficiency``
@@ -201,8 +202,8 @@ def register_backend(name: str, builder: Callable, *,
     the halo in the kernel) — accept ``**opts`` so new options stay
     backward-compatible.  ``smem_tiles=True`` marks kernels that keep the
     haloed tile in shared memory (fused operators are then gated by
-    ``matrixization.step_smem_bytes``).  ``wraps=True`` marks a builder
-    that also takes ``boundary="periodic"`` and then returns a
+    ``matrixization.step_smem_bytes``).  ``wraps=True``: both builders
+    also take ``boundary="periodic"`` and then return a
     shape-preserving core reading the periodic halo itself; the engine
     uses it instead of padding the state for the valid-mode core.
 
@@ -342,16 +343,24 @@ class StencilEngine:
                              f"{self.plan.spec.describe()}")
         return backend.builder(self.plan)
 
+    def _shape_preserving(self, build: Callable[[str], Callable],
+                          width: int) -> Callable[[Tensor], Tensor]:
+        """``build(boundary)``'s core at the plan's boundary: at
+        'periodic' the backend's own wrap core where it has one (the
+        kernels read the halo through wrapped indices), else the
+        valid-mode core lifted by the halo layer by ``width``."""
+        plan = self.plan
+        if plan.boundary == "periodic" and get_backend(plan.backend).wraps:
+            return build("periodic")
+        return halo.wrap_boundary(build("valid"), width, plan.spec.ndim,
+                                  plan.boundary)
+
     def _boundary_fn(self) -> Callable[[Tensor], Tensor]:
-        """The shape-preserving update at the plan's boundary: at
-        'periodic' the backend's own wrap core where it has one (the step
-        kernel reads the halo through wrapped indices, as the sweep kernel
-        does), else the valid-mode core lifted by the halo layer."""
-        plan, backend = self.plan, get_backend(self.plan.backend)
-        if plan.boundary == "periodic" and backend.wraps:
-            return backend.builder(plan, boundary="periodic")
-        return halo.wrap_boundary(self._core, plan.spec.order,
-                                  plan.spec.ndim, plan.boundary)
+        """The shape-preserving single-step update."""
+        builder = get_backend(self.plan.backend).builder
+        return self._shape_preserving(
+            lambda b: self._core if b == "valid"
+            else builder(self.plan, boundary=b), self.plan.spec.order)
 
     def _check_device(self, x: Tensor) -> None:
         if x.device.type != self.device.type or (
@@ -606,12 +615,9 @@ class StencilEngine:
                              f"from {temporal.FUSE_STRATEGIES}")
         self._check_fusion_legal(t, strategy)
         if strategy == "inkernel":
-            spec = self.plan.spec
-            if self.plan.boundary == "periodic":
-                # the sweep kernel reads the halo through wrapped indices
-                return self.inkernel_core(t, boundary="periodic")
-            return halo.wrap_boundary(self.inkernel_core(t), t * spec.order,
-                                      spec.ndim, self.plan.boundary)
+            return self._shape_preserving(
+                lambda b: self.inkernel_core(t, boundary=b),
+                t * self.plan.spec.order)
         return self.fused_engine(t)._fn
 
     def _apply_chunk(self, x: Tensor, t: int,

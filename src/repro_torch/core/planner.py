@@ -1113,8 +1113,8 @@ def _check_plan_input(x, grid: tuple[int, ...], nd: int, batch: int,
                          f"{lead} (plan with batch={lead[0]} to batch)")
 
 
-def _compile_distributed(eplan: ExecutionPlan, mesh, device,
-                         overlap: bool) -> CompiledStencil:
+def _compile_distributed(eplan: ExecutionPlan, mesh,
+                         device) -> CompiledStencil:
     from repro_torch.core.distributed import make_fused_distributed_stepper
     from repro_torch.launch.mesh import make_mesh
     sh = eplan.sharding
@@ -1135,7 +1135,7 @@ def _compile_distributed(eplan: ExecutionPlan, mesh, device,
         fused_option=eplan.option if eplan.fuse_depth > 1 else "auto",
         backend=eplan.backend, boundary=eplan.boundary, block=eplan.block,
         fuse_strategy=eplan.fuse_strategy,
-        batch=batch if batch > 1 else None, overlap=overlap)
+        batch=batch if batch > 1 else None)
 
     def fn(x):
         # the same clear shape errors the single-device fn raises
@@ -1149,25 +1149,24 @@ def _compile_distributed(eplan: ExecutionPlan, mesh, device,
     return CompiledStencil(plan=eplan, fn=fn, stepper=stepper)
 
 
-def compile_plan(eplan: ExecutionPlan, mesh=None, *, device="cuda",
-                 overlap: bool = True) -> CompiledStencil:
+def compile_plan(eplan: ExecutionPlan, mesh=None, *,
+                 device="cuda") -> CompiledStencil:
     """Materialize an ExecutionPlan into an executable on ``device``
     (the card unless the caller asks for ``"cpu"``; without a card the
     default raises).
 
     Distributed plans (``sharding`` set) compile to the fused sharded
-    stepper on ``mesh``: ONE ``T*r``-deep halo exchange per fused chunk,
-    the exchange overlapped with compute on copy streams when
-    ``overlap``.  Without a ``mesh`` the recorded mesh shape is rebuilt
-    with every slot on ``device``; a mesh of another shape or axis names
-    raises ``ValueError``.
+    stepper on ``mesh``: ONE ``T*r``-deep halo exchange per fused chunk.
+    Without a ``mesh`` the recorded mesh shape is rebuilt with every slot
+    on ``device``; a mesh of another shape or axis names raises
+    ``ValueError``.
     """
     if eplan.fuse_strategy not in FUSE_STRATEGIES:
         raise ValueError(f"plan carries unknown fuse strategy "
                          f"{eplan.fuse_strategy!r}; choose from "
                          f"{FUSE_STRATEGIES}")
     if eplan.sharding is not None:
-        return _compile_distributed(eplan, mesh, device, overlap)
+        return _compile_distributed(eplan, mesh, device)
     spec = eplan.spec
     batch = eplan.batch
     eng = StencilEngine(spec, option=eplan.base_option, backend=eplan.backend,

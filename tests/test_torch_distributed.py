@@ -77,10 +77,9 @@ def _oracle(name, x, steps, boundary):
                                               boundary))
 
 
-@pytest.mark.parametrize("overlap", [True, False], ids=["overlap", "serial"])
 @pytest.mark.parametrize(
     "case", CASES, ids=[c[0] for c in CASES])
-def test_sharded_run_matches_oracle_and_single_device(case, overlap):
+def test_sharded_run_matches_oracle_and_single_device(case):
     _, name, grid, batch, mshape, gaxes, boundary, strategy, fuse, steps = \
         case
     mesh = make_mesh(mshape, ("x", "y")[:len(mshape)], devices="cpu")
@@ -88,7 +87,7 @@ def test_sharded_run_matches_oracle_and_single_device(case, overlap):
     p = api.plan(prob, backends=["cuda"], fuse=fuse, fuse_strategy=strategy)
     assert p.halo_strategy == "exchange"
     assert p.fuse_strategy == strategy
-    run = api.compile(p, mesh=mesh, overlap=overlap)
+    run = api.compile(p, mesh=mesh)
     x = _state(grid, batch)
     xt = torch.from_numpy(x)
     dist.reset_exchange_counts()
@@ -111,6 +110,43 @@ def test_sharded_run_matches_oracle_and_single_device(case, overlap):
     out = run(st)
     assert isinstance(out, dist.ShardedState) and out.mesh is mesh
     assert torch.equal(dist.unshard(out), y)
+
+
+@pytest.mark.parametrize(
+    "case", CASES, ids=[c[0] for c in CASES])
+def test_exchange_census_matches_strip_geometry(case):
+    """One compiled run's strips and bytes against their closed form: a
+    chunk of depth ``t`` exchanges ``w = t*r``-deep strips, two a slot and
+    named axis in array-axis order; a strip is ``w`` deep on its own axis,
+    spans the owned extent of the sharded axes still to come and the
+    haloed extent of every other axis, so the corners travel with the
+    later axis's strips."""
+    _, name, grid, batch, mshape, gaxes, boundary, strategy, fuse, steps = \
+        case
+    names = ("x", "y")[:len(mshape)]
+    mesh = make_mesh(mshape, names, devices="cpu")
+    p = api.plan(_problem(name, grid, batch, boundary, steps, mesh, gaxes),
+                 backends=["cuda"], fuse=fuse, fuse_strategy=strategy)
+    run = api.compile(p, mesh=mesh)
+    xt = torch.from_numpy(_state(grid, batch))
+    dist.reset_exchange_counts()
+    run(xt)
+    sizes = dict(zip(names, mshape))
+    local = [n // sizes[a] if a else n for n, a in zip(grid, gaxes)]
+    named = [i for i, a in enumerate(gaxes) if a]
+    slots = int(np.prod(mshape))
+    r = api.PAPER_SUITE()[name].order
+    strips = nbytes = 0
+    for t in p.fuse_schedule:
+        w = t * r
+        for i in named:
+            extent = [w if a == i else n if a in named and a > i
+                      else n + 2 * w for a, n in enumerate(local)]
+            strips += 2 * slots
+            nbytes += 2 * slots * batch * int(np.prod(extent)) * \
+                xt.element_size()
+    assert dist.exchange_counts["strips"] == strips
+    assert dist.exchange_counts["bytes"] == nbytes
 
 
 def test_local_extent_below_fused_halo_raises():

@@ -194,6 +194,30 @@ def test_every_backend_step_matches_oracle(backend, name):
                                np.asarray(want), atol=1e-4)
 
 
+def test_periodic_inkernel_chunk_pads_for_a_backend_without_wrap_mode(
+        monkeypatch):
+    """A backend whose sweep core ignores ``boundary`` (``wraps=False``)
+    gets its valid-mode chunk lifted by the halo layer at 'periodic', as
+    its single step does: the state keeps its shape."""
+    from repro_torch.kernels import ops as kops
+
+    def sweep_builder(plan, steps, *, scratch="pingpong", **_opts):
+        return kops.cuda_sweep_core(plan, steps, scratch=scratch)
+
+    monkeypatch.setitem(engine._BACKENDS, "valid_sweep", engine.Backend(
+        name="valid_sweep", builder=engine._cuda_builder,
+        sweep_builder=sweep_builder, wraps=False))
+    ref, port = _pair("star2d_r1")
+    x = np.random.default_rng(5).normal(size=(24, 20)).astype(np.float32)
+    eng = engine.StencilEngine(port, backend="valid_sweep",
+                               boundary="periodic", block=(8, 8),
+                               device="cpu")
+    y = eng.sweep(torch.from_numpy(x), 4, fuse=2, strategy="inkernel")
+    assert y.shape == x.shape
+    want = ref_ts.reference_evolve(ref, jnp.asarray(x), 4, "periodic")
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), atol=1e-4)
+
+
 def test_codegen_emits_torch_source():
     from repro_torch.core.codegen import generate_update
     eng = engine.StencilEngine(ss.box(2, 1), backend="codegen", device="cpu")
