@@ -26,7 +26,8 @@ Phases:
    at max|diff| <= 1e-4; the launch counters are zeroed just before and
    read just after, both kernels must have launched, and every step
    launch of a 3-D cell walks axis 0 (``stencil_cuda_call.walk_launches``)
-   and none of a 2-D one;
+   and none of a 2-D one, every sweep launch of a 2-D cell walks axis 0
+   (``sweep_cuda_call.walk_launches``) and none of a 3-D one;
 5. hold every distinct kernel configuration the main path launched
    (kernel, spec, cover, tile, T, aux operands, input mode — read from
    each cell's compiled engine) against its plain version at the path's
@@ -45,7 +46,11 @@ Phases:
    axis-0 walk against the slab path (one tile a block), bit for bit, on
    3-D chunks of both input modes, f32 and bf16, constant and
    varying+masked, ragged, box and fused, with the launch timed for the
-   slab and every walk depth at 1024^3 and 512^3;
+   slab and every walk depth at 1024^3 and 512^3; and the sweep kernel's
+   axis-0 walk against its slab path, bit for bit, on 2-D launches of
+   both input modes, f32 and bf16, 0 and 2 aux operands, batch 1 and 3,
+   ragged, 1 to 6 steps and at the star2d_r2 cell's chunk, with the
+   launch timed for the slab and every walk depth at 32768^2;
 7. time each cell's warm run on the host clock and break one profiled
    run's device time into the two kernels and everything else, with the
    pads counted twice, by the port's ``halo.pad`` spans (count, bytes,
@@ -659,6 +664,7 @@ def run_cells(device, failures: list, cells=CELLS) -> dict:
         x = seeded_normal(cell["grid"], 1000 + i, device)
         before = [c.launches for c in counters]
         walks = sm.stencil_cuda_call.walk_launches
+        sweep_walks = sm.sweep_cuda_call.walk_launches
         if device.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -668,24 +674,32 @@ def run_cells(device, failures: list, cells=CELLS) -> dict:
         t_run = time.perf_counter() - t0
         launched = [c.launches - b for c, b in zip(counters, before)]
         walks = sm.stencil_cuda_call.walk_launches - walks
-        # every 3-D step launch walks axis 0; a 2-D one never does
+        sweep_walks = sm.sweep_cuda_call.walk_launches - sweep_walks
+        # every 3-D step launch and every 2-D sweep launch walks axis 0;
+        # no 2-D step launch and no 3-D sweep launch does
         want_walks = launched[0] if spec.ndim == 3 else 0
+        want_sweep_walks = launched[1] if spec.ndim == 2 else 0
         want = reference_evolve(spec, x, cell["steps"], "periodic")
         err = (y - want).abs().max().item()
         finite = bool(torch.isfinite(y).all())
         ok = (err <= E2E_ATOL and finite and y.shape == x.shape
               and y.dtype == x.dtype)
+        walked = walks == want_walks and sweep_walks == want_sweep_walks
         log(f"  {cell['label']}: max|port-oracle| {err:.3e} (tol "
             f"{E2E_ATOL:g}), finite={finite}, shape={tuple(y.shape)}, "
             f"run {t_run * 1e3:.1f} ms incl. first-launch setup, launches "
-            f"step={launched[0]} sweep={launched[1]}, walking "
-            f"{walks}{'' if ok and walks == want_walks else '  FAIL'}")
+            f"step={launched[0]} sweep={launched[1]}, walking step "
+            f"{walks} sweep {sweep_walks}{'' if ok and walked else '  FAIL'}")
         if not ok:
             failures.append(f"main path: {cell['label']}: {err:.3e}")
         if walks != want_walks:
             failures.append(f"main path: {cell['label']}: {walks} walking "
                             f"step launches of {launched[0]} (want "
                             f"{want_walks})")
+        if sweep_walks != want_sweep_walks:
+            failures.append(f"main path: {cell['label']}: {sweep_walks} "
+                            f"walking sweep launches of {launched[1]} (want "
+                            f"{want_sweep_walks})")
         del x, y, want
     counts = {"stencil_step": sm.stencil_cuda_call.launches,
               "stencil_sweep": sm.sweep_cuda_call.launches}
@@ -1090,6 +1104,111 @@ def step_walk_vs_slab(device, main: dict, failures: list) -> None:
         log(f"  {base.describe()} {n}^3 block {block}, ms a launch in turns"
             f" ({sms} SMs): {table}")
         del x
+
+
+# phase 6b: the sweep's axis-0 walk against the slab path, (suite name,
+# cover, tile, output extent, steps, dtype, wrap, scenario, batch)
+SWEEP_WALK_CASES = (
+    ("star2d_r2", "minimal", (64, 128), (1000, 1300), 3, "float32", True,
+     "constant", None),
+    ("star2d_r2", "minimal", (64, 128), (1000, 1300), 3, "float32", True,
+     "varying+masked", 3),
+    ("star2d_r2", "minimal", (64, 128), (1000, 1300), 3, "bfloat16", True,
+     "constant", 3),
+    ("star2d_r2", "minimal", (64, 128), (1000, 1300), 3, "bfloat16", True,
+     "varying+masked", None),
+    ("star2d_r2", "minimal", (64, 128), (1024, 1280), 3, "float32", False,
+     "constant", 3),
+    ("star2d_r2", "minimal", (64, 128), (1024, 1280), 3, "float32", False,
+     "varying+masked", None),
+    ("star2d_r1", "parallel", (32, 128), (1000, 1300), 4, "float32", True,
+     "varying+masked", None),
+    ("box2d_r1", "parallel", (16, 64), (333, 515), 6, "float32", True,
+     "constant", None),
+    ("star2d_r2", "minimal", (32, 128), (517, 1000), 1, "float32", True,
+     "constant", 3),
+    ("star2d_r2", "minimal", (64, 128), (32768, 32768), 3, "float32", True,
+     "constant", None))
+# the walks held against the slab path besides the rule's
+SWEEP_WALK_DEPTHS = (1, 3, 16)
+
+
+def sweep_walk_vs_slab(device, failures: list) -> None:
+    """The sweep kernel's axis-0 walk (``sweep_kernel`` at the walk
+    :func:`sweep_cuda_call` picks, and at :data:`SWEEP_WALK_DEPTHS`)
+    against the slab path (``sweep_kernel(..., 0)``), bit for bit, on
+    :data:`SWEEP_WALK_CASES`: f32 and bf16, wrap and halo mode, 0 and 2
+    aux operands, batch 1 and 3, ragged grids, 1 to 6 steps, and the
+    star2d_r2 cell's chunk at 32768^2; one walking launch a call.  Then
+    the launch's time at the cell's chunk for the slab and every walk of
+    ``matrixization.STEP_WALKS``, in turns (CUDA events), beside the walk
+    the rule picks."""
+    import numpy as np
+    import torch
+    from repro_torch.core import coefficient_lines as cl
+    from repro_torch.core import halo
+    from repro_torch.core import matrixization as mx
+    from repro_torch.core import stencil_spec as ss
+    from repro_torch.kernels import stencil_mxu as sm
+
+    sms = sm.sm_count(device)
+    for i, (name, cov, block, grid, steps, dtype, wrap, scenario,
+            batch) in enumerate(SWEEP_WALK_CASES):
+        spec = ss.PAPER_SUITE()[name]
+        if scenario != "constant":
+            spec = spec.with_field(np.ones(grid),
+                                   domain_mask=np.ones(grid, bool))
+        plan = sm.build_sweep_kernel_plan(spec, cl.make_cover(spec, cov),
+                                          block, steps, batch=batch,
+                                          wrap=wrap)
+        w = steps * spec.order
+        lead = (batch,) if batch else ()
+        x = seeded_normal(lead + grid, 3400 + i, device).to(
+            getattr(torch, dtype))
+        if not wrap:
+            x = halo.pad_halo(x, w, 2, "periodic")
+        aux = () if spec.is_constant_dense else seeded_aux(
+            sm.sweep_aux_shape(grid, plan), 3500 + i, device)
+        walk = sm.sweep_walk_of(plan, grid, sms)
+        walks = sm.sweep_cuda_call.walk_launches
+        got = {walk: sm.sweep_cuda_call(x, plan, aux)}
+        walks = sm.sweep_cuda_call.walk_launches - walks
+        want = sm.sweep_kernel(x, plan, aux, 0)
+        equal = {walk: bool(torch.equal(got.pop(walk), want))}
+        if max(grid) <= 4096:
+            for k in SWEEP_WALK_DEPTHS:
+                equal[k] = bool(torch.equal(sm.sweep_kernel(x, plan, aux, k),
+                                            want))
+        torch.cuda.synchronize()
+        ok = all(equal.values()) and walk >= 1 and walks == 1
+        text = ", ".join(f"k={k} {e}" for k, e in sorted(equal.items()))
+        label = (f"{name} {cov} T={steps} {grid} {dtype} {scenario} "
+                 f"batch={batch} {'wrap' if wrap else 'halo'}")
+        log(f"  sweep walk vs slab, {label}, block {block}: the rule's walk "
+            f"{walk}, bit-equal: {text}; walking launches {walks}"
+            f"{'' if ok else '  FAIL'}")
+        if not ok:
+            failures.append(f"sweep walk vs slab: {label}: {text}, walk "
+                            f"{walk}, {walks} walking launches")
+        del x, aux, want
+    name, cov, block, grid, steps = SWEEP_WALK_CASES[-1][:5]
+    spec = ss.PAPER_SUITE()[name]
+    plan = sm.build_sweep_kernel_plan(spec, cl.make_cover(spec, cov), block,
+                                      steps, wrap=True)
+    x = seeded_normal(grid, 3600, device)
+    walks = (0,) + mx.STEP_WALKS
+    times = {k: [] for k in walks}
+    for k in walks + walks[::-1]:
+        times[k].append(cuda_ms(lambda k=k: sm.sweep_kernel(x, plan, (), k),
+                                reps=5))
+    pick = sm.sweep_walk_of(plan, grid, sms)
+    table = "; ".join(
+        f"{'slab' if k == 0 else f'k={k}'} {t[0]:.3f}, {t[1]:.3f}"
+        + (" (the rule's)" if k == pick else "")
+        for k, t in times.items())
+    log(f"  {spec.describe()} T={steps} {grid[0]}^2 block {block}, ms a "
+        f"launch in turns ({sms} SMs): {table}")
+    del x
 
 
 def _time_row(name, source, replaces, launches, failures, *, kernel, plain,
@@ -4279,10 +4398,11 @@ def main() -> int:
     rows = time_kernels(device, main_run, failures)
     compare_sweep_tiles(device, main_run, failures)
     log("phase 6b: the step kernel in wrap mode against the padded path, "
-        "and its axis-0 walk against the slab path, bit for bit (CUDA "
-        "events)")
+        "and its axis-0 walk against the slab path, bit for bit; the "
+        "sweep kernel's axis-0 walk against its slab path (CUDA events)")
     step_wrap_vs_padded(device, main_run, failures)
     step_walk_vs_slab(device, main_run, failures)
+    sweep_walk_vs_slab(device, failures)
 
     log("phase 7: whole cells, warm (host clock; device time by profiler)")
     cell_breakdown(device, main_run, failures)

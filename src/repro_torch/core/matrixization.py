@@ -61,6 +61,9 @@ __all__ = [
     "sweep_items",
     "sweep_smem_bytes",
     "sweep_feasible",
+    "sweep_walk_rings",
+    "sweep_ring_smem_bytes",
+    "sweep_walk",
     "SMEM_BYTES",
     "TILE_SMEM_BUDGET",
     "SWEEP_THREADS",
@@ -75,6 +78,9 @@ __all__ = [
     "H100_SMS",
     "STEP_WALK_REREAD",
     "STEP_WALK_BLOCKS",
+    "SWEEP_WALK_ROWS",
+    "SWEEP_WALK_AHEAD",
+    "SWEEP_WALK_MAX_ORDER",
     "SCRATCH_MODES",
     "check_scratch",
 ]
@@ -132,6 +138,13 @@ SWEEP_THREADS = 256
 SWEEP_ITEM_ROWS = 8
 SWEEP_ITEM_CHUNKS = 4
 SINGLE_SLOTS = 6
+#: The sweep kernel's axis-0 walk (:func:`sweep_walk_rings`): rows each
+#: level computes a step of the walk, and groups of that many input rows
+#: loading while a step computes.
+SWEEP_WALK_ROWS = 16
+SWEEP_WALK_AHEAD = 1
+#: The walk's kernels are compiled for orders 1 to SWEEP_WALK_MAX_ORDER.
+SWEEP_WALK_MAX_ORDER = 4
 
 #: :func:`step_walk`: a walk re-reads at most 1/STEP_WALK_REREAD of its
 #: planes, and a walking launch keeps STEP_WALK_BLOCKS blocks for each
@@ -289,6 +302,63 @@ def sweep_feasible(block: tuple[int, ...], steps: int, order: int,
         return sweep_items(block, steps, order) <= \
             SWEEP_THREADS // 32 * SINGLE_SLOTS
     return True
+
+
+def sweep_walk_rings(steps: int, order: int) -> tuple[int, int, int, int]:
+    """``(q, ahead, ring0, ring1)`` of the sweep kernel's axis-0 walk over
+    a 2-D state: each level computes ``q`` rows a step of the walk while
+    ``ahead`` groups of ``q`` input rows load; the input ring holds the
+    ``2*order + q`` rows a step reads and those loading, and each of the
+    ``steps - 1`` intermediate levels a ring of the ``2*order + q`` rows
+    the next level reads and the ``q`` rows it writes at the same step."""
+    q, ahead = SWEEP_WALK_ROWS, SWEEP_WALK_AHEAD
+    return q, ahead, 2 * order + (1 + ahead) * q, 2 * order + 2 * q
+
+
+def sweep_ring_smem_bytes(block: tuple[int, ...], steps: int, order: int,
+                          table_words: int | None = None) -> int:
+    """Shared memory of one walking sweep-kernel block: the input ring and
+    the ``steps - 1`` step rings of :func:`sweep_walk_rings`, each row at
+    :func:`sweep_slab_pitch`, rounded up to 16 bytes, and ``table_words``
+    32-bit words for the taps (a mask a row and a coefficient a position
+    of the ``(2*order + 1)``-square, the kernel's layout) — by default the
+    bound of :func:`sweep_smem_bytes`."""
+    if steps < 1:
+        raise ValueError("steps >= 1")
+    _, _, ring0, ring1 = sweep_walk_rings(steps, order)
+    rows = ring0 + (steps - 1) * ring1
+    words = -(-rows * sweep_slab_pitch(block, steps, order) // 4) * 4
+    if table_words is None:
+        table_words = 5 * (2 * order + 1) ** len(block)
+    return 4 * (words + table_words)
+
+
+def sweep_walk(out_shape: tuple[int, ...], block: tuple[int, ...],
+               steps: int, order: int, batch: int, sms: int) -> int:
+    """Tiles each block of a sweep launch walks along axis 0 (0: one tile
+    a block, the slab path).
+
+    Only a 2-D launch of order 1 to :data:`SWEEP_WALK_MAX_ORDER` walks,
+    and only where its rings (:func:`sweep_ring_smem_bytes`) fit the
+    launch limit.  As
+    :func:`step_walk`: the shallowest of :data:`STEP_WALKS` whose
+    ``2*steps*order`` re-read rows are at most ``1/STEP_WALK_REREAD`` of
+    its ``k*b0`` output rows, no deeper than the tiles along axis 0, and
+    halved while the launch would have fewer than ``STEP_WALK_BLOCKS``
+    blocks for each of the card's ``sms`` multiprocessors.  A walk of one
+    tile reads and computes what one tile a block does."""
+    if len(block) != 2 or not 1 <= order <= SWEEP_WALK_MAX_ORDER \
+            or sweep_ring_smem_bytes(block, steps, order) > SMEM_BYTES:
+        return 0
+    tiles = [-(-int(o) // int(b)) for o, b in zip(out_shape, block)]
+    halo = 2 * steps * order
+    walk = next((k for k in STEP_WALKS
+                 if halo * STEP_WALK_REREAD <= k * block[0]),
+                STEP_WALKS[-1])
+    while walk > 1 and (walk > tiles[0] or batch * tiles[1]
+                        * -(-tiles[0] // walk) < STEP_WALK_BLOCKS * sms):
+        walk //= 2
+    return walk
 
 
 def toeplitz_band_np(band: np.ndarray, n_out: int) -> np.ndarray:

@@ -62,6 +62,31 @@
 // in order (the plan's row order, which stencil_mxu.sweep_plain follows
 // too), then the field, then the mask; f32 throughout, one cast at the end.
 //
+// 2-D launches walk axis 0 (stencil_sweep_kernel_walk): one block streams
+// a strip of `walk` tiles down the rows (matrixization.sweep_walk), and
+// only 3-D launches keep the slab.  What bounds the slab on this card, by
+// variants at the star2d_r2 cell's launch (32768^2, T = 3, 64x128; PERF.md
+// §6): 10.4 ms, of which its loads and stores alone take 5.4 and its taps
+// and stores alone 8.3.  Each block waits for its whole 76-row slab before
+// any tap, two blocks fit an SM, and the taps are latency-bound: a run's
+// dispatch (its header, a switch on its width and offset) precedes its
+// loads and FMAs, for every run of every item.  What the walk does:
+//   * bytes and work: each row of each level is loaded or computed once
+//     along the walk; only the strip's 2 T r halo columns are re-read and
+//     recomputed (9.22 GB a launch at k = 4 against 9.89);
+//   * schedule: rings of rows instead of a slab (108 rows of the slab's
+//     pitch at that tile, 67 KB: three blocks an SM).  At step j level L
+//     computes its j - L + 1-th group of q rows, so the levels of a step
+//     are independent: one barrier a step, and the next group of input
+//     rows loads (cp.async) while the step computes;
+//   * taps without dispatch: the table is laid out by position in the
+//     (2r + 1)^2 square, and a thread reads its output's window row by row
+//     into registers and applies each position's taps with compile-time
+//     register indices; a row holding only the output's own column (a
+//     star's) loads just that column, a full row tests no position.
+// Measured there: 7.2 ms a launch (loads and stores alone about 5.0, taps
+// and stores alone 6.3; they overlap).
+//
 // A 2-D problem is passed as 3-D with a leading extent of 1 and no halo on
 // it.  The aux operands are slab-aligned: extents ceil(o / b) * b + 2*T*r
 // per axis, so every tile's slab window lies inside them.
@@ -79,7 +104,13 @@ constexpr int kMaxRun = 9;     // == matrixization.STEP_MAX_RUN
 constexpr int kTx = 4;         // == matrixization.SWEEP_ITEM_CHUNKS
 constexpr int kTy = 8;         // == matrixization.SWEEP_ITEM_ROWS
 constexpr int kWarps = kThreads / 32;
+static_assert((kWarps & (kWarps - 1)) == 0, "warps a block: a power of two");
 static_assert(kTx * kTy == 32, "a work item is one warp");
+// the axis-0 walk (2-D): rows a level computes a step of the walk, and
+// groups of that many input rows loading while a step computes
+constexpr int kWalkRows = 16;  // == matrixization.SWEEP_WALK_ROWS
+constexpr int kWalkAhead = 1;  // == matrixization.SWEEP_WALK_AHEAD
+constexpr int kWalkMaxOrder = 4;  // == matrixization.SWEEP_WALK_MAX_ORDER
 
 struct Geom {
   int o0, o1, o2;          // output extents (the state's)
@@ -96,6 +127,9 @@ struct Geom {
   int wrap;                // input is the unpadded periodic state
   int aligned;             // 16-byte copies (f32 only)
   int vec;                 // 16-byte output stores
+  int walk;                // tiles a block walks along the rows (0: one slab a block)
+  int walks1;              // walks along the rows of a strip
+  int ring0, ring1;        // rows of the walk's input ring and of each step's ring
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -115,6 +149,10 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// every group but the kWalkAhead - 1 committed last
+__device__ __forceinline__ void cp_async_wait_ahead() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kWalkAhead - 1) : "memory");
+}
 
 // Input index of coordinate c along an axis of n points: c itself inside,
 // c modulo n in wrap mode, -1 (a zero) past a haloed input's end.
@@ -125,11 +163,62 @@ __device__ __forceinline__ int source_index(int c, int n, int wrap) {
   return c < 0 ? c + n : c;
 }
 
+// One slab row into its storage: `dst` is the row's storage column 0, `src`
+// the input row it reads (null past a haloed input's end: zeros), org2
+// the input column of slab column 0 (wrapped).  A row is `per_row` units
+// of 4 words when 16-byte copies are on (`wide`), else of 1; this lane
+// copies units sub, sub + lanes, ...
+template <typename T>
+__device__ __forceinline__ void copy_row(float* dst, const T* __restrict__ src, const Geom& g,
+                                         int org2, int sub, int lanes, int per_row, bool wide) {
+  const int unit = wide ? 4 : 1;
+  if (src == nullptr) {
+    for (int c = sub; c < per_row * unit; c += lanes) dst[(wide ? 0 : g.lead) + c] = 0.f;
+    return;
+  }
+  if (!wide) dst += g.lead;
+  for (int u = sub; u < per_row; u += lanes) {
+    // input column of the unit's first word
+    const int c0 = org2 - (wide ? g.lead : 0) + unit * u;
+    if constexpr (sizeof(T) == 4) {
+      const float* fsrc = reinterpret_cast<const float*>(src);
+      if (wide && c0 >= 0 && c0 + 4 <= g.n2) {
+        cp_async16(dst + 4 * u, fsrc + c0);
+        continue;
+      }
+      for (int j = 0; j < unit; ++j) {
+        const int c = source_index(c0 + j, g.n2, g.wrap);
+        if (c >= 0) cp_async4(dst + unit * u + j, fsrc + c);
+        else dst[unit * u + j] = 0.f;
+      }
+    } else {
+      const int c = source_index(c0, g.n2, g.wrap);
+      dst[u] = c >= 0 ? to_f32(src[c]) : 0.f;
+    }
+  }
+}
+
+// A row's copy spread over the fewest lanes (a power of two, 2^lg): a
+// warp handles 32 >> lg rows at a time.
+struct RowLanes {
+  int per_row, lg, sub, first_row, row_step;
+  bool wide;
+  template <typename T>
+  __device__ __forceinline__ void init(const Geom& g) {
+    wide = sizeof(T) == 4 && g.aligned;
+    per_row = wide ? (g.lead + g.s2 + 3) / 4 : g.s2;
+    lg = 0;
+    while (lg < 5 && (1 << lg) < per_row) ++lg;
+    const int lane = threadIdx.x & 31;
+    sub = lane & ((1 << lg) - 1);
+    first_row = ((threadIdx.x >> 5) << (5 - lg)) + (lane >> lg);
+    row_step = (kThreads / 32) << (5 - lg);
+  }
+};
+
 // Start (f32: cp.async) or do (bf16: plain loads) the copy of the tile's
 // slab at origin (g0, g1, g2) into buf.  Slab column i of a row sits at
-// storage column lead + i, and reads input column org2 + i (wrapped).  A
-// row is `per_row` units of `unit` words (4 when 16-byte copies are on,
-// else 1), spread over 2^lg lanes.
+// storage column lead + i, and reads input column org2 + i (wrapped).
 template <typename T>
 __device__ __forceinline__ void load_slab(float* buf, const T* __restrict__ xs,
                                           const Geom& g, int g0, int g1, int g2) {
@@ -137,45 +226,17 @@ __device__ __forceinline__ void load_slab(float* buf, const T* __restrict__ xs,
   const int org0 = g.wrap ? g0 - w0 : g0;
   const int org1 = g.wrap ? g1 - w1 : g1;
   const int org2 = g.wrap ? g2 - w2 : g2;
-  const bool wide = sizeof(T) == 4 && g.aligned;
-  const int unit = wide ? 4 : 1;
-  const int first = wide ? 0 : g.lead;          // storage column of unit 0
-  const int per_row = wide ? (g.lead + g.s2 + 3) / 4 : g.s2;
-  int lg = 0;
-  while (lg < 5 && (1 << lg) < per_row) ++lg;
-  const int lane = threadIdx.x & 31, sub = lane & ((1 << lg) - 1);
-  const int row_step = (kThreads / 32) << (5 - lg);
-  int i0 = 0, i1 = ((threadIdx.x >> 5) << (5 - lg)) + (lane >> lg);
+  RowLanes rl;
+  rl.init<T>(g);
+  int i0 = 0, i1 = rl.first_row;
   while (i1 >= g.s1) { i1 -= g.s1; ++i0; }
   while (i0 < g.s0) {
-    float* dst = buf + (i0 * g.s1 + i1) * g.pitch + first;
     const int r0 = source_index(org0 + i0, g.n0, g.wrap);
     const int r1 = source_index(org1 + i1, g.n1, g.wrap);
-    if (r0 < 0 || r1 < 0) {
-      for (int c = sub; c < per_row * unit; c += 1 << lg) dst[c] = 0.f;
-    } else {
-      const T* src = xs + ((long long)r0 * g.n1 + r1) * g.n2;
-      for (int u = sub; u < per_row; u += 1 << lg) {
-        // input column of the unit's first word
-        const int c0 = org2 - (wide ? g.lead : 0) + unit * u;
-        if constexpr (sizeof(T) == 4) {
-          const float* fsrc = reinterpret_cast<const float*>(src);
-          if (wide && c0 >= 0 && c0 + 4 <= g.n2) {
-            cp_async16(dst + 4 * u, fsrc + c0);
-            continue;
-          }
-          for (int j = 0; j < unit; ++j) {
-            const int c = source_index(c0 + j, g.n2, g.wrap);
-            if (c >= 0) cp_async4(dst + unit * u + j, fsrc + c);
-            else dst[unit * u + j] = 0.f;
-          }
-        } else {
-          const int c = source_index(c0, g.n2, g.wrap);
-          dst[u] = c >= 0 ? to_f32(src[c]) : 0.f;
-        }
-      }
-    }
-    i1 += row_step;
+    const T* src = (r0 < 0 || r1 < 0) ? nullptr : xs + ((long long)r0 * g.n1 + r1) * g.n2;
+    copy_row<T>(buf + (i0 * g.s1 + i1) * g.pitch, src, g, org2, rl.sub, 1 << rl.lg, rl.per_row,
+                rl.wide);
+    i1 += rl.row_step;
     while (i1 >= g.s1) { i1 -= g.s1; ++i0; }
   }
 }
@@ -432,6 +493,271 @@ __global__ void __launch_bounds__(kThreads, 2) stencil_sweep_kernel(
   }
 }
 
+// N aligned 16-byte shared loads from p into v.
+template <int N>
+__device__ __forceinline__ void load_words(const float* p, float (&v)[4 * N]) {
+  const float4* p4 = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const float4 f = p4[n];
+    v[4 * n] = f.x;
+    v[4 * n + 1] = f.y;
+    v[4 * n + 2] = f.z;
+    v[4 * n + 3] = f.w;
+  }
+}
+
+// n mod d for 0 <= n < 2^16 by a multiply: m = ceil(2^32 / d), d < 2^16.
+struct SmallMod {
+  unsigned d, m;
+  __device__ __forceinline__ void init(int div) {
+    d = div;
+    m = 0xffffffffu / d + 1;
+  }
+  __device__ __forceinline__ int operator()(int n) const {
+    return n - (int)(__umulhi((unsigned)n, m) * d);
+  }
+};
+
+// The taps of one window row for one thread's kV outputs (the walk): the
+// row's values from p (16-byte aligned, SH words before the column R left
+// of the first output) into registers, then each position pos of the
+// row's 2R + 1 whose bit is set in `mask`, in order: kV FMAs with its
+// coefficient c[at + pos] (c: registers or shared memory).  Positions are
+// compile-time, so every value sits in a register.  A row that holds only
+// the output's own column (a star's) loads just that column's kV values,
+// and a full row (a box's) tests no position.
+template <int R, int SH, typename C>
+__device__ __forceinline__ void row_taps(const float* p, unsigned mask, const C& c, int at,
+                                         float (&acc)[kV]) {
+  constexpr unsigned kFull = (1u << (2 * R + 1)) - 1, kCenter = 1u << R;
+  if (mask == 0) return;
+  if (mask == kCenter) {
+    // the kV values from the 16-byte boundary at or before column R
+    constexpr int S = (SH + R) & 3, B = SH + R - S, N = (S + kV + 3) / 4;
+    float v[4 * N];
+    load_words<N>(p + B, v);
+    const float ck = c[at + R];
+#pragma unroll
+    for (int i = 0; i < kV; ++i) acc[i] = fmaf(ck, v[S + i], acc[i]);
+    return;
+  }
+  constexpr int N = (SH + kV + 2 * R + 3) / 4;
+  float v[4 * N];
+  load_words<N>(p, v);
+  if (mask == kFull) {
+#pragma unroll
+    for (int pos = 0; pos <= 2 * R; ++pos) {
+      const float ck = c[at + pos];
+#pragma unroll
+      for (int i = 0; i < kV; ++i) acc[i] = fmaf(ck, v[SH + pos + i], acc[i]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int pos = 0; pos <= 2 * R; ++pos) {
+    if (mask & (1u << pos)) {
+      const float ck = c[at + pos];
+#pragma unroll
+      for (int i = 0; i < kV; ++i) acc[i] = fmaf(ck, v[SH + pos + i], acc[i]);
+    }
+  }
+}
+
+// The axis-0 walk of a 2-D sweep: one block a strip of b2 output columns
+// (blockIdx.x: walk, then strip), walking g.walk tiles down its rows.
+// Level 0 is the input and level L the state after L steps; level L's
+// local row p is row g1 - (T - L) R + p of the state, so it reads the
+// level-(L-1) rows p .. p + 2R.  Level L's group G is its rows
+// [hi(L, G - 1), hi(L, G)), hi(L, G) = (G + 1) q + 2 (T - L) R clipped to
+// [0, len + 2 (T - L) R]: up to q rows, which read exactly the level
+// below's groups up to G.  At step j of the walk every level L computes
+// its group j - L + 1, from rows the level below computed at earlier
+// steps, so a step's levels are independent: one barrier a step, and the
+// warps deal the items of all levels among them.  Input row p sits in
+// slot p mod ring0 of the input ring (the 2R + q rows a step reads and
+// kWalkAhead groups of q loading); level-L row p (0 < L < T) in slot p mod
+// ring1 of level L's ring (the 2R + q rows level L + 1 reads and the q rows
+// level L writes at the same step).
+// The taps: the slab path's table sums each output's runs in order, taps
+// in order: its rows in ascending order, each row's taps by ascending
+// column, at most one tap a position (stencil_mxu.sweep_walk_of walks no
+// plan with two).  Each block first lays the table out by position (a mask
+// of each row's taps in the 2R + 1 square, and their coefficients), and a
+// thread then reads its output's window row by row and applies each
+// position's tap from registers, in that same order: every output sums
+// the same taps in the same order on the same values as on the slab path,
+// bit for bit, with no dispatch on a run's width or offset.  Ring L > 0
+// stores slab column X at storage column lead_of(L) + X, so that at every
+// level a window row starts SH = lead (mod 4) words past a 16-byte
+// boundary, as in the input ring.
+// At most 64 registers a thread (left alone, ptxas chose 48 and spilled:
+// 7.7 ms a launch at the star2d_r2 cell, against 7.2).
+template <typename T, int R, int SH>
+__global__ void __launch_bounds__(kThreads, 4) stencil_sweep_kernel_walk(
+    const T* __restrict__ x, T* __restrict__ out, const float* __restrict__ aux0,
+    const float* __restrict__ aux1, int n_aux, const int* __restrict__ table, int n_runs,
+    int n_taps, Geom g) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int P = 2 * R + 1;
+  unsigned* masks = reinterpret_cast<unsigned*>(smem + g.slab_words);
+  float* cdense = smem + g.slab_words + P;  // coefficients by position
+  const int steps = g.steps, q = kWalkRows;
+  const int w = blockIdx.x / g.tiles2;
+  const int g2 = (blockIdx.x - w * g.tiles2) * g.b2;
+  const int g1 = w * g.walk * g.b1;  // the walk's first output row
+  // the rows of its whole tiles (those past the state are computed, never
+  // stored), and the input rows they read
+  const int len = min(g.walk * g.b1, g.tiles1 * g.b1 - g1);
+  const int n_in = len + 2 * steps * R;
+  const T* xs = x + (long long)blockIdx.y * ((long long)g.n1 * g.n2);
+  T* os = out + (long long)blockIdx.y * ((long long)g.o1 * g.o2);
+  const int org1 = g.wrap ? g1 - steps * R : g1;
+  const int org2 = g.wrap ? g2 - steps * R : g2;
+  RowLanes rl;
+  rl.init<T>(g);
+  SmallMod mod0, mod1;  // slots of the input ring and of the step rings
+  mod0.init(g.ring0);
+  mod1.init(g.ring1);
+  // input rows [p, p + n) of the walk into their slots (f32: start the copies)
+  auto load = [&](int p, int n) {
+    n = min(n, n_in - p);
+    for (int i = rl.first_row; i < n; i += rl.row_step) {
+      const int r1 = source_index(org1 + p + i, g.n1, g.wrap);
+      copy_row<T>(smem + mod0(p + i) * g.pitch, r1 < 0 ? nullptr : xs + (long long)r1 * g.n2,
+                  g, org2, rl.sub, 1 << rl.lg, rl.per_row, rl.wide);
+    }
+  };
+  auto hi = [&](int level, int j) {
+    const int extra = 2 * (steps - level) * R;
+    return max(0, min((j + 1) * q + extra, len + extra));
+  };
+  // the first step at which level 1 computes a row, and the step past the
+  // last step of level T
+  const int j0 = -((2 * (steps - 1) * R + q - 1) / q);
+  const int j_end = (len + q - 1) / q + steps - 1;
+  // input group G is the rows [hi(0, G - 1), hi(0, G)), group j0 all rows
+  // before hi(0, j0): the first kWalkAhead groups load before the walk
+  auto load_group = [&](int G) {
+    const int from = G == j0 ? 0 : hi(0, G - 1);
+    load(from, hi(0, G) - from);
+    cp_async_commit();
+  };
+  for (int a = 0; a < kWalkAhead; ++a) load_group(j0 + a);
+
+  // the table by position, while the first rows load: run k holds the
+  // coefficients run.z, ... of row dr's columns dc, dc + 1, ...
+  for (int i = threadIdx.x; i < P; i += kThreads) masks[i] = 0;
+  for (int i = threadIdx.x; i < P * P; i += kThreads) cdense[i] = 0.f;
+  __syncthreads();
+  for (int k = threadIdx.x; k < n_runs; k += kThreads) {
+    const int4 run = __ldg(reinterpret_cast<const int4*>(table) + k);
+    const int dr = (run.x + R * g.pitch + (g.pitch >> 1)) / g.pitch - R;
+    const int dc = run.x - dr * g.pitch;
+    for (int t = 0; t < run.y; ++t) {
+      cdense[(dr + R) * P + dc + R + t] = __int_as_float(__ldg(table + 4 * n_runs + run.z + t));
+      atomicOr(masks + dr + R, 1u << (dc + R + t));
+    }
+  }
+  __syncthreads();
+  unsigned row_mask[P];
+#pragma unroll
+  for (int d = 0; d < P; ++d) row_mask[d] = masks[d];
+  // the coefficients in registers up to order 2, else read from shared memory
+  float creg[R <= 2 ? P * P : 1];
+  if constexpr (R <= 2) {
+#pragma unroll
+    for (int i = 0; i < P * P; ++i) creg[i] = cdense[i];
+  }
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lx = lane % kTx, ly = lane / kTx;
+  const bool vec = g.vec != 0;
+  auto lead_of = [&](int ring) { return (g.lead - ring * R) & 3; };
+  // level `level`'s rows [lo, top): items of kTy rows x kTx chunks, dealt
+  // to the warps in turn from item `first` on; a thread computes one chunk
+  // of one row (a row or chunk past the level computes at row lo, chunk 0,
+  // and is never stored).  The last level scales and stores to device
+  // memory, the others into their ring.  Returns the warp's first item of
+  // the next level.
+  auto compute = [&](int level, int lo, int top, int first) {
+    const int e2 = g.b2 + 2 * (steps - level) * R;  // live columns
+    const int nch = (e2 + kV - 1) / kV;
+    const int ncg = (nch + kTx - 1) / kTx;
+    const int rows = top - lo;
+    const int n_items = (rows + kTy - 1) / kTy * ncg;
+    const bool last = level == steps;
+    const int src_ring = level == 1 ? g.ring0 : g.ring1;
+    const float* src = smem + (level == 1 ? 0 : g.ring0 + (level - 2) * g.ring1) * g.pitch;
+    // storage column of chunk 0's window, 16-byte aligned
+    const int col = lead_of(level - 1) + (level - 1) * R - SH;
+    const int src_lo = level == 1 ? mod0(lo) : mod1(lo);  // slot of row lo's first window row
+    const int dst_lo = mod1(lo);
+    int rb = 0, cg = first;
+    while (cg >= ncg) { cg -= ncg; ++rb; }
+    for (int item = first; item < n_items; item += kWarps) {
+      const int row = rb * kTy + ly, c = cg * kTx + lx;
+      const bool live = row < rows && c < nch;
+      int slot = src_lo + (live ? row : 0);
+      if (slot >= src_ring) slot -= src_ring;
+      const float* base = src + col + (live ? c : 0) * kV;
+      float acc[kV];
+#pragma unroll
+      for (int i = 0; i < kV; ++i) acc[i] = 0.f;
+#pragma unroll
+      for (int d = 0; d < P; ++d) {
+        if constexpr (R <= 2) {
+          row_taps<R, SH>(base + slot * g.pitch, row_mask[d], creg, d * P, acc);
+        } else {
+          row_taps<R, SH>(base + slot * g.pitch, row_mask[d], cdense, d * P, acc);
+        }
+        if (++slot == src_ring) slot = 0;
+      }
+      cg += kWarps;
+      while (cg >= ncg) { cg -= ncg; ++rb; }
+      if (!live) continue;
+      const int pr = lo + row;  // the level's local row
+      int n_valid = min(kV, e2 - c * kV);
+      if (last) n_valid = (g1 + pr < g.o1) ? min(n_valid, g.o2 - g2 - c * kV) : 0;
+      if (n_aux > 0) {
+        const long long a = (long long)(g1 + level * R + pr) * g.a2 + (g2 + level * R + c * kV);
+#pragma unroll
+        for (int i = 0; i < kV; ++i)
+          if (i < n_valid) {
+            acc[i] *= __ldg(aux0 + a + i);
+            if (n_aux > 1) acc[i] *= __ldg(aux1 + a + i);
+          }
+      }
+      if (last) {
+        if (n_valid > 0)
+          store_chunk<T>(os + (long long)(g1 + pr) * g.o2 + g2 + c * kV, acc, n_valid, vec);
+      } else {
+        int dst = dst_lo + row;
+        if (dst >= g.ring1) dst -= g.ring1;
+        float* d = smem + (g.ring0 + (level - 1) * g.ring1 + dst) * g.pitch + lead_of(level) +
+                   level * R + c * kV;
+#pragma unroll
+        for (int i = 0; i < kV; ++i)
+          if (i < n_valid) d[i] = acc[i];
+      }
+    }
+    return (first - n_items) & (kWarps - 1);
+  };
+
+  for (int j = j0; j < j_end; ++j) {
+    cp_async_wait_ahead();  // input group j has landed
+    // and every row of step j - 1: the input rows step j - 1 read and step
+    // j does not are free, and group j + kWalkAhead goes there
+    __syncthreads();
+    load_group(j + kWalkAhead);
+    for (int level = 1, first = warp; level <= steps; ++level) {
+      const int G = j - level + 1;
+      const int lo = hi(level, G - 1), top = hi(level, G);
+      if (top > lo) first = compute(level, lo, top, first);
+    }
+  }
+}
+
 template <typename T, bool kSingle>
 cudaError_t launch(const void* x, void* out, const float* aux0, const float* aux1,
                    int n_aux, const int* table, int n_taps, int batch, const Geom& g,
@@ -450,6 +776,50 @@ cudaError_t launch(const void* x, void* out, const float* aux0, const float* aux
   return cudaGetLastError();
 }
 
+// The walk: its rings (g.slab_words) and the taps laid out by position
+// (a mask a row, a coefficient a position), one block a walk of a strip;
+// one kernel for each order and each offset modulo 4 of the window rows
+// (the rows' lead).
+template <typename T, int R>
+cudaError_t launch_walk(const void* x, void* out, const float* aux0, const float* aux1,
+                        int n_aux, const int* table, int n_taps, int batch, const Geom& g,
+                        int n_runs, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)g.slab_words + (2 * R + 1) * (2 * R + 2));
+  void (*kernel)(const T*, T*, const float*, const float*, int, const int*, int, int, Geom);
+  if constexpr (sizeof(T) == 2) {
+    kernel = stencil_sweep_kernel_walk<T, R, 0>;  // bf16 rows: plain loads, no lead
+  } else {
+    switch (g.lead) {
+      case 0: kernel = stencil_sweep_kernel_walk<T, R, 0>; break;
+      case 1: kernel = stencil_sweep_kernel_walk<T, R, 1>; break;
+      case 2: kernel = stencil_sweep_kernel_walk<T, R, 2>; break;
+      default: kernel = stencil_sweep_kernel_walk<T, R, 3>; break;
+    }
+  }
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)g.walks1 * g.tiles2;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, (unsigned)batch);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<T*>(out), aux0,
+                                           aux1, n_aux, table, n_runs, n_taps, g);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_walk(const void* x, void* out, const float* aux0, const float* aux1,
+                        int n_aux, const int* table, int n_taps, int batch, const Geom& g,
+                        int n_runs, cudaStream_t stream) {
+  switch (g.h1) {
+    case 1: return launch_walk<T, 1>(x, out, aux0, aux1, n_aux, table, n_taps, batch, g, n_runs, stream);
+    case 2: return launch_walk<T, 2>(x, out, aux0, aux1, n_aux, table, n_taps, batch, g, n_runs, stream);
+    case 3: return launch_walk<T, 3>(x, out, aux0, aux1, n_aux, table, n_taps, batch, g, n_runs, stream);
+    case 4: return launch_walk<T, 4>(x, out, aux0, aux1, n_aux, table, n_taps, batch, g, n_runs, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // table: 4*n_runs + n_taps int32 words — per run (slab offset of its first
@@ -460,14 +830,16 @@ cudaError_t launch(const void* x, void* out, const float* aux0, const float* aux
 // arrays: ceil(o / b) * b + 2*steps*h per axis.  lead: storage column of
 // slab column 0 (input columns and storage columns agree modulo 4 when
 // aligned = 1, which turns on 16-byte copies; f32 only).  vec: rows of kV
-// outputs are 16-byte aligned in out.  Returns the cudaError_t of the
-// launch (0 = cudaSuccess).
+// outputs are 16-byte aligned in out.  walk: tiles a block walks along
+// the rows of a 2-D problem (matrixization.sweep_walk; `single` is then
+// moot), 0 for one slab a block.  Returns the cudaError_t of the launch
+// (0 = cudaSuccess).
 extern "C" int stencil_sweep_launch(const void* x, void* out, const float* aux0,
                                     const float* aux1, int n_aux, const int* table,
                                     int n_taps, int is_bf16, int batch, int o0, int o1,
                                     int o2, int b0, int b1, int b2, int h0, int h1,
                                     int h2, int n_runs, int steps, int single, int wrap,
-                                    int pitch, int lead, int vec, int aligned,
+                                    int pitch, int lead, int vec, int aligned, int walk,
                                     void* stream) {
   Geom g;
   g.o0 = o0; g.o1 = o1; g.o2 = o2;
@@ -487,6 +859,18 @@ extern "C" int stencil_sweep_launch(const void* x, void* out, const float* aux0,
   g.wrap = wrap;
   g.aligned = aligned && !is_bf16;
   g.vec = vec;
+  // the walk (== matrixization.sweep_walk_rings): the input ring holds the
+  // 2 h1 + q rows a step reads and kWalkAhead groups of q loading, each
+  // level's ring the 2 h1 + q rows the next level reads and the q it writes
+  g.walk = walk;
+  g.walks1 = walk > 0 ? (g.tiles1 + walk - 1) / walk : 0;
+  g.ring0 = 2 * h1 + (1 + kWalkAhead) * kWalkRows;
+  g.ring1 = 2 * h1 + 2 * kWalkRows;
+  if (walk) g.slab_words = ((g.ring0 + (steps - 1) * g.ring1) * pitch + 3) / 4 * 4;
+  // (a walk's rows index its rings through SmallMod: fewer than 2^16)
+  if (walk < 0 || (walk > 0 && (o0 != 1 || b0 != 1 || h0 != 0 || h1 != h2 || h1 < 1 ||
+                                 h1 > kWalkMaxOrder || walk * b1 + 2 * steps * h1 >= 65536)))
+    return (int)cudaErrorInvalidValue;
   // the over-read of a step's last chunk (kV outputs, the run's radius and
   // a 16-byte load's rounding) stays inside the row's pitch
   if (steps < 1 || lead < 0 || lead > 3 || pitch % 8 != 4 || pitch < lead + g.s2 + kV + 2)
@@ -498,7 +882,12 @@ extern "C" int stencil_sweep_launch(const void* x, void* out, const float* aux0,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (is_bf16) {
+  if (walk) {
+    err = is_bf16 ? launch_walk<__nv_bfloat16>(x, out, aux0, aux1, n_aux, table, n_taps, batch,
+                                               g, n_runs, s)
+                  : launch_walk<float>(x, out, aux0, aux1, n_aux, table, n_taps, batch, g,
+                                       n_runs, s);
+  } else if (is_bf16) {
     err = single ? launch<__nv_bfloat16, true>(x, out, aux0, aux1, n_aux, table, n_taps, batch,
                                                g, n_runs, s)
                  : launch<__nv_bfloat16, false>(x, out, aux0, aux1, n_aux, table, n_taps,

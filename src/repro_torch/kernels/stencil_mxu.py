@@ -30,14 +30,17 @@ launch.
 
 A 3-D step launch walks axis 0 instead (:func:`step_kernel`): one block
 streams a column of tiles through a ring of slab planes, so the axis-0
-halo is read once a walk, not once a tile.
+halo is read once a walk, not once a tile.  A 2-D sweep launch walks axis
+0 too (:func:`sweep_kernel`): one block streams a strip of tiles through a
+ring of input rows and one ring of rows a step, so the axis-0 halo is
+neither re-read nor recomputed along the walk.
 
 Routing: a wrapper given a CPU tensor runs its plain version (whole-tensor
 shifted adds, the same taps in the same order); given a CUDA tensor it
 launches its kernel or raises — there is no fallback.  Each wrapper counts
 its launches in ``<wrapper>.launches``, its wrap-mode launches also in
-``<wrapper>.wrap_launches``, and the step kernel's walking launches in
-``stencil_cuda_call.walk_launches``.
+``<wrapper>.wrap_launches``, and each kernel's walking launches in
+``<wrapper>.walk_launches``.
 """
 from __future__ import annotations
 
@@ -61,7 +64,8 @@ __all__ = ["KernelPlan", "build_kernel_plan", "stencil_cuda_call",
            "stencil_step_plain", "SweepKernelPlan",
            "build_sweep_kernel_plan", "sweep_cuda_call", "sweep_plain",
            "sweep_aux_shape", "step_launch_cost", "sweep_launch_cost",
-           "step_lead", "step_kernel", "step_walk_of", "sm_count", "tap_runs",
+           "step_lead", "step_kernel", "step_walk_of", "sweep_kernel",
+           "sweep_walk_of", "sm_count", "tap_runs",
            "tap_table", "SCRATCH_MODES", "MAX_BATCH"]
 
 #: The batch rides the kernels' second grid dimension (at most 65535).
@@ -487,24 +491,43 @@ def step_launch_cost(plan: KernelPlan, x_shape: Sequence[int],
 
 
 def sweep_launch_cost(plan: SweepKernelPlan, x_shape: Sequence[int],
-                      itemsize: int) -> LaunchCost:
-    """One :func:`sweep_cuda_call`: every block reads its ``T*r``-haloed
-    slab (wrapped or haloed alike) and the tap table, and at each step
-    ``s`` computes — and scales by each aux operand — the live extent
-    ``step_exts[s]``, so the halo rings it recomputes are counted; the
-    output is written once."""
-    nd, w = plan.spec.ndim, plan.steps * plan.spec.order
+                      itemsize: int, sms: int = mx.H100_SMS) -> LaunchCost:
+    """One :func:`sweep_cuda_call` on a card of ``sms`` multiprocessors.
+    One tile a block: every block reads its ``T*r``-haloed slab (wrapped
+    or haloed alike) and the tap table, and at each step ``s`` computes —
+    and scales by each aux operand — the live extent ``step_exts[s]``, so
+    the halo rings it recomputes are counted.  Walking ``k`` tiles a block
+    (:func:`sweep_walk_of`): every block reads the ``len + 2Tr`` haloed
+    rows of its walk's ``len`` rows of whole tiles (``k*b0``, fewer at the
+    state's end) and the table, and at step ``s`` computes the
+    ``len + 2(T-1-s)r`` rows of the live width once.  The output is
+    written once."""
+    nd, r, steps = plan.spec.ndim, plan.spec.order, plan.steps
+    w = steps * r
     out = [int(s) - (0 if plan.wrap else 2 * w)
            for s in x_shape[len(x_shape) - nd:]]
     blocks = _launch_blocks(plan, out)
+    slab = [b + 2 * w for b in plan.block]
+    table = _table_words(plan) * 4
+    written = (plan.batch or 1) * int(np.prod(out)) * itemsize
+    walk = sweep_walk_of(plan, out, sms)
+    if walk:
+        b0 = plan.block[0]
+        tiles0 = -(-out[0] // b0)
+        lens = [min(walk, tiles0 - t0) * b0 for t0 in range(0, tiles0, walk)]
+        live = sum((n + 2 * (steps - 1 - s) * r) * e[-1]
+                   for n in lens for s, e in enumerate(plan.step_exts))
+        strips = blocks // tiles0
+        reads = sum(n + 2 * w for n in lens) * slab[-1] * itemsize
+        return LaunchCost(
+            fmas=len(plan.taps) * live * strips,
+            bytes=strips * (reads + len(lens) * table
+                            + plan.n_aux * live * 4) + written)
     live = sum(int(np.prod(e)) for e in plan.step_exts)
-    slab = int(np.prod([b + 2 * w for b in plan.block]))
-    per_block = (slab * itemsize + plan.n_aux * live * 4
-                 + _table_words(plan) * 4)
-    return LaunchCost(
-        fmas=len(plan.taps) * live * blocks,
-        bytes=blocks * per_block + (plan.batch or 1) * int(np.prod(out))
-        * itemsize)
+    per_block = (int(np.prod(slab)) * itemsize + plan.n_aux * live * 4
+                 + table)
+    return LaunchCost(fmas=len(plan.taps) * live * blocks,
+                      bytes=blocks * per_block + written)
 
 
 def _priced(name: str, cost):
@@ -543,6 +566,19 @@ def step_walk_of(plan: KernelPlan, out_shape: Sequence[int],
     return mx.step_walk(_as3(out_shape, 1), _as3(plan.block, 1),
                         plan.spec.order if plan.spec.ndim == 3 else 0,
                         plan.batch or 1, sms)
+
+
+def sweep_walk_of(plan: SweepKernelPlan, out_shape: Sequence[int],
+                  sms: int) -> int:
+    """The walk :func:`sweep_cuda_call` launches ``plan`` with on an output
+    of spatial ``out_shape`` and a card of ``sms`` multiprocessors
+    (:func:`mx.sweep_walk`; 0: one tile a block).  The walking kernel
+    keeps one tap a position, so a plan whose cover puts two taps at one
+    offset keeps the slab."""
+    if len({g for _, g in plan.taps}) < len(plan.taps):
+        return 0
+    return mx.sweep_walk(tuple(int(o) for o in out_shape), plan.block,
+                         plan.steps, plan.spec.order, plan.batch or 1, sms)
 
 
 # ---------------------------------------------------------------------------
@@ -701,7 +737,7 @@ def sweep_plain(x: torch.Tensor, plan: SweepKernelPlan,
 
 
 @_priced("stencil_sweep", lambda plan, x: sweep_launch_cost(
-    plan, tuple(x.shape), x.element_size()))
+    plan, tuple(x.shape), x.element_size(), sm_count(x.device)))
 def sweep_cuda_call(x: torch.Tensor, plan: SweepKernelPlan,
                     aux: Sequence[torch.Tensor] = ()) -> torch.Tensor:
     """Advance a spatial tensor by ``plan.steps`` base steps in one kernel.
@@ -713,15 +749,41 @@ def sweep_cuda_call(x: torch.Tensor, plan: SweepKernelPlan,
     slab-aligned f32 operands of :func:`sweep_aux_shape` (no batch axis).
 
     A CPU tensor runs :func:`sweep_plain`; a CUDA tensor launches
-    ``csrc/stencil_sweep.cu`` or raises.
+    ``csrc/stencil_sweep.cu`` or raises.  A 2-D launch walks axis 0 where
+    :func:`sweep_walk_of` says so (orders 1 to 4, rings that fit; the
+    outputs are the same bits either way): a block streams its strip of
+    tiles through rings of rows, so each row of each step is loaded or
+    computed once along the walk, and its loads run under the taps.
     """
     if x.device.type == "cpu":
         return sweep_plain(x, plan, aux)
+    walk = sweep_walk_of(plan, _sweep_shapes(x, plan, aux),
+                         sm_count(x.device))
+    out = sweep_kernel(x, plan, aux, walk)
+    sweep_cuda_call.launches += 1
+    sweep_cuda_call.walk_launches += walk > 0
+    return out
+
+
+def sweep_kernel(x: torch.Tensor, plan: SweepKernelPlan,
+                 aux: Sequence[torch.Tensor], walk: int) -> torch.Tensor:
+    """One launch of ``csrc/stencil_sweep.cu`` on a CUDA tensor, each block
+    walking ``walk`` tiles along axis 0 of a 2-D state (0: one tile a
+    block, the slab path), uncounted and unpriced: :func:`sweep_cuda_call`
+    picks the walk; the card's checks hold one walk against another
+    here."""
     r, steps = plan.spec.order, plan.steps
     out_shape = _sweep_shapes(x, plan, aux)
     batch = plan.batch or 1
     _check_cuda_operands(x, aux, batch)
-    if not mx.sweep_feasible(plan.block, steps, r, plan.scratch):
+    if walk:
+        smem = mx.sweep_ring_smem_bytes(plan.block, steps, r)
+        if plan.spec.ndim != 2 or not 1 <= r <= mx.SWEEP_WALK_MAX_ORDER \
+                or smem > mx.SMEM_BYTES:
+            raise ValueError(f"block {plan.block} at {steps} steps of order "
+                             f"{r} cannot walk ({plan.spec.ndim}-D, {smem} B"
+                             f" of rings, limit {mx.SMEM_BYTES})")
+    elif not mx.sweep_feasible(plan.block, steps, r, plan.scratch):
         raise ValueError(
             f"block {plan.block} at {steps} steps of order {r} does not fit "
             f"the sweep kernel under scratch={plan.scratch!r} "
@@ -740,13 +802,14 @@ def sweep_cuda_call(x: torch.Tensor, plan: SweepKernelPlan,
     lead = (-w2) % 4 if plan.wrap and aligned else 0
     vec = int(out_shape[-1] % mx.STEP_V == 0
               and plan.block[-1] % mx.STEP_V == 0 and out.data_ptr() % 16 == 0)
-    fn = _launcher("stencil_sweep", "stencil_sweep_launch", 8)
+    fn = _launcher("stencil_sweep", "stencil_sweep_launch", 9)
     _launch(fn, "stencil_sweep", x, out, aux, table, len(plan.taps), batch,
             out_shape, plan.block, _as3((r,) * plan.spec.ndim, 0), n_runs,
             steps, int(plan.scratch == "single"), int(plan.wrap),
-            mx.sweep_slab_pitch(plan.block, steps, r), lead, vec, aligned)
-    sweep_cuda_call.launches += 1
+            mx.sweep_slab_pitch(plan.block, steps, r), lead, vec, aligned,
+            int(walk))
     return out
 
 
 sweep_cuda_call.launches = 0
+sweep_cuda_call.walk_launches = 0
