@@ -1,6 +1,6 @@
 """Each cell on the card at its own size, through the command a checker
-runs: a sound run is correct, the control in TF32 is not.  Skips without
-a card:
+runs: a sound run is correct, its reference's control is not.  Skips
+without a card:
 
     python -m pytest portbench/tests -m card
 """
@@ -10,6 +10,8 @@ import sys
 from pathlib import Path
 
 import pytest
+
+from portbench import harness
 
 ROOT = Path(__file__).resolve().parents[2]
 CELLS = tuple(w["name"] for w in json.loads(
@@ -31,5 +33,6 @@ def test_cell_on_the_card_is_correct_and_its_control_is_not(card, cell):
     sound = run(cell, 2 ** 31 + 17)
     assert sound["correct"] is True, sound["checks"]
     assert sound["device"]["kind"].startswith("NVIDIA")
-    control = run(cell, 2 ** 31 + 17, "--control", "tf32")
+    lower = harness.reference_for(harness.load_cell(cell)).CONTROLS[0]
+    control = run(cell, 2 ** 31 + 17, "--control", lower)
     assert control["correct"] is False, control["checks"]
